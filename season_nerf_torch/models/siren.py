@@ -1,0 +1,90 @@
+"""SIREN layers in eval mode: sin(BN(omega * (W x + b))).
+
+The math and the cast points of ``season_nerf_tpu/models/siren.py``:
+
+- ``dtype`` is the matmul dtype.  Under bfloat16 the input, weight and bias
+  are cast to bf16, the product and the bias add are bf16, and
+  ``z = omega * (...)`` is stored in bf16;
+- BatchNorm (running statistics, eps 1e-5) and sin run in float32, in
+  flax's order: ``(z - mean) * (rsqrt(var + eps) * scale) + bias``;
+- the activation is cast back to ``dtype``.
+
+Training mode (batch statistics, running-stat updates) is not ported yet:
+calling a layer in training mode raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from season_nerf_torch.ops.fast_math import fast_sin
+
+BN_EPS = 1e-5
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)``: promote everything to ``dtype``
+    (float32 when None), then ``x @ W + b`` with a rounding after each op."""
+    dt = dtype or torch.float32
+    return x.to(dt) @ weight.to(dt).t() + bias.to(dt)
+
+
+class SplitDense(nn.Linear):
+    """``nn.Linear`` over ``[x, extra]`` without building the concatenation:
+    ``x @ W[:, :in_x]^T + extra @ W[:, in_x:]^T + b`` (flax ``SplitDense``)."""
+
+    def forward(self, x, extra=None, dtype=None):
+        if extra is None:
+            return dense(x, self.weight, self.bias, dtype)
+        dt = dtype or torch.float32
+        in_x = x.shape[-1]
+        w = self.weight.to(dt)
+        return (x.to(dt) @ w[:, :in_x].t() + extra.to(dt) @ w[:, in_x:].t()
+                + self.bias.to(dt))
+
+
+class Dense(nn.Linear):
+    """A plain head layer computed in the network's ``dtype``."""
+
+    def __init__(self, in_features, out_features, dtype=None):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return dense(x, self.weight, self.bias, self.dtype)
+
+
+class SineLayer(nn.Module):
+    """sin(norm(omega_0 * (W x + b))), eval mode.  ``norm`` is a
+    ``BatchNorm1d`` (momentum 0.01, the reference's) when ``use_norm``,
+    used as the holder of its scale, shift and running statistics."""
+
+    def __init__(self, in_features, out_features, use_norm=False,
+                 omega_0=30.0, dtype=None, fast_sine=False):
+        super().__init__()
+        self.omega_0 = omega_0
+        self.dtype = dtype
+        self.fast_sine = fast_sine
+        self.linear = SplitDense(in_features, out_features)
+        self.norm = (nn.BatchNorm1d(out_features, eps=BN_EPS, momentum=0.01)
+                     if use_norm else None)
+
+    def bn_eval(self, z: torch.Tensor) -> torch.Tensor:
+        n = self.norm
+        mul = torch.rsqrt(n.running_var.float() + BN_EPS) * n.weight.float()
+        return (z - n.running_mean.float()) * mul + n.bias.float()
+
+    def forward(self, x, extra=None):
+        if self.training:
+            raise NotImplementedError(
+                "SineLayer is ported for inference only; call .eval()")
+        z = self.omega_0 * self.linear(x, extra, self.dtype)
+        z = z.float()
+        if self.norm is not None:
+            z = self.bn_eval(z)
+        y = fast_sin(z) if self.fast_sine else torch.sin(z)
+        return y.to(self.dtype) if self.dtype is not None else y

@@ -1,0 +1,53 @@
+"""The degree-11 polynomial sine and cosine (K0), plain PyTorch, for inference.
+
+One round-to-nearest reduction by 2*pi, then an odd polynomial:
+
+  fast_sin(x) = y * P5(y^2),  y = x - 2*pi * rint(x / (2*pi))
+  fast_cos(x) = fast_sin(x + pi/2)
+
+Max abs error against sin on [-pi, pi] is 1.9e-7; the reduction adds about
+|k| * 2.8e-7 for |x| ~ k * 2*pi.  The coefficients are those of
+``season_nerf_tpu/ops/fast_math.py`` (degree 11, its default).  The same
+arithmetic runs inside the CUDA trunk kernel (``csrc/fast_sin.cuh``).
+No autograd: the gradient through cos comes with training.
+"""
+
+from __future__ import annotations
+
+import torch
+
+TWO_PI = 6.283185307179586
+INV_TWO_PI = 0.15915494309189535
+HALF_PI = 1.5707963267948966
+
+# highest power first: P5(t) = ((((c0 t + c1) t + c2) t + c3) t + c4) t + c5
+POLY = (
+    -2.069411010213876e-08,
+    2.7087317655524043e-06,
+    -0.00019817545051422297,
+    0.008332788468806916,
+    -0.1666662073313615,
+    0.9999999370777358,
+)
+
+
+def reduce_two_pi(x: torch.Tensor) -> torch.Tensor:
+    return x - TWO_PI * torch.round(x * INV_TWO_PI)
+
+
+def poly_sin(y: torch.Tensor) -> torch.Tensor:
+    t = y * y
+    p = torch.full_like(t, POLY[0])
+    for c in POLY[1:]:
+        p = p * t + c
+    return y * p
+
+
+def fast_sin(x: torch.Tensor) -> torch.Tensor:
+    """sin(x) to f32 accuracy for |x| up to ~1e3 (one-round reduction)."""
+    return poly_sin(reduce_two_pi(x))
+
+
+def fast_cos(x: torch.Tensor) -> torch.Tensor:
+    """cos(x) as the same polynomial a quarter period on."""
+    return poly_sin(reduce_two_pi(x + HALF_PI))

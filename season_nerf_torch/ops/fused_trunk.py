@@ -1,0 +1,262 @@
+"""The fused inference trunk (K3): fold, plain version, and CUDA kernel.
+
+The counterpart of ``season_nerf_tpu/ops/pallas_mlp.py``.  At inference
+the trunk's BatchNorms are affine in the running statistics, so each SIREN
+layer folds to ``sin(x @ W'^T + b')`` with
+
+    s  = gamma / sqrt(var + eps)
+    W' = omega * W * s[:, None]           ([out, in], the torch layout)
+    b' = (omega * b - mean) * s + beta
+
+(fc1 has no norm).  :func:`fold_trunk` does this once per loaded model, in
+float64 on the host, then casts and keeps the result on the device.  It
+works from a layer table, so it serves every depth and width the model
+builds: widths are zero-padded to a multiple of 32 (the kernel's tile) and
+the 63-wide positional encoding to 64; padded outputs are sin(0) = 0 and
+padded inputs meet zero weights.
+
+:func:`trunk_apply` is the kernel's wrapper.  For a CPU tensor it runs the
+plain version, :func:`trunk_apply_reference`; for a CUDA tensor it launches
+``csrc/trunk_infer.cu`` or raises.  ``trunk_apply.launches`` counts the
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from season_nerf_torch.models.encodings import encoded_size, positional_encode
+from season_nerf_torch.models.siren import BN_EPS
+from season_nerf_torch.ops import cuda_build
+from season_nerf_torch.ops.fast_math import fast_sin
+
+PE_FREQS = 10
+PE_DIM = encoded_size(3, PE_FREQS)      # 63
+MULTIPLE = 32                           # padding of every width
+KERNEL = "trunk_infer"
+
+
+def _pad_to(n: int) -> int:
+    return -(-n // MULTIPLE) * MULTIPLE
+
+
+PE_PAD = _pad_to(PE_DIM)                # 64
+
+
+@dataclasses.dataclass
+class FoldedTrunk:
+    """Folded, padded trunk weights and the kernel's buffer plan.
+
+    ``weights[i]`` is ``[n_pad, k_pad]`` in the compute dtype and
+    ``biases[i]`` ``[n_pad]`` float32.  ``inputs[i]`` names what layer i
+    reads: ``"pe"`` (fc1), ``"h"``, or ``"h+pe"`` (the skip layer, laid
+    out as ``[h (width_pad) | PE (PE_PAD)]``)."""
+    weights: List[torch.Tensor]
+    biases: List[torch.Tensor]
+    inputs: List[str]
+    width_pad: int
+    out_features: int
+    _table: Optional[torch.Tensor] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.weights[0].dtype
+
+    def buffer_plan(self):
+        """-> per layer (in_buf, in_off, out_buf) over the kernel's two
+        shared-memory buffers: A = [h | PE], B = h.  The layer before the
+        skip writes A, so that the skip layer reads [h | PE] in place; the
+        other layers alternate.  fc1 reads A's PE columns, so it may write
+        A's h columns."""
+        n = len(self.inputs)
+        skip = self.inputs.index("h+pe") if "h+pe" in self.inputs else None
+        first_out = (skip - 1) % 2 if skip is not None else 1
+        plan, out_buf = [], first_out
+        for i in range(n):
+            if i == 0:
+                in_buf, in_off = 0, self.width_pad
+            else:
+                in_buf, in_off = plan[-1][2], 0
+                out_buf = 1 - in_buf
+            plan.append((in_buf, in_off, out_buf))
+        return plan
+
+    def layer_table(self) -> torch.Tensor:
+        """The int64 layer table the kernel reads (``trunk_infer.cu``),
+        built once, on the weights' device."""
+        if self._table is None:
+            rows = []
+            for w, b, (ib, io, ob) in zip(self.weights, self.biases,
+                                          self.buffer_plan()):
+                rows.append([w.data_ptr(), b.data_ptr(), w.shape[1],
+                             w.shape[0], ib, io, ob, 0])
+            self._table = torch.tensor(rows, dtype=torch.int64,
+                                       device=self.weights[0].device)
+        return self._table
+
+
+def trunk_layers(gnerf):
+    """The trunk of a ``GNeRF`` as [(SineLayer, input kind)]."""
+    layers = [(getattr(gnerf, f"fc{i}"),
+               "pe" if i == 1 else "h+pe" if i == gnerf.skip else "h")
+              for i in range(1, gnerf.n_layers + 1)]
+    return layers + [(gnerf.fc9, "h")]
+
+
+def fold_trunk(gnerf, dtype: torch.dtype = torch.float32,
+               device=None) -> FoldedTrunk:
+    """Fold omega and the BN running statistics of ``gnerf``'s trunk into
+    padded ``(W', b')`` per layer (float64 math, then ``dtype``)."""
+    device = device if device is not None else gnerf.fc1.linear.weight.device
+    width = gnerf.fc1.linear.out_features
+    wp = _pad_to(width)
+    weights, biases, inputs = [], [], []
+    for layer, kind in trunk_layers(gnerf):
+        f64 = lambda t: t.detach().to("cpu", torch.float64).numpy()
+        W = layer.omega_0 * f64(layer.linear.weight)          # [out, in]
+        b = layer.omega_0 * f64(layer.linear.bias)
+        if layer.norm is not None:
+            n = layer.norm
+            s = f64(n.weight) / np.sqrt(f64(n.running_var) + BN_EPS)
+            W = W * s[:, None]
+            b = (b - f64(n.running_mean)) * s + f64(n.bias)
+        out = W.shape[0]
+        Wp = np.zeros((_pad_to(out), {"pe": PE_PAD, "h": wp,
+                                      "h+pe": wp + PE_PAD}[kind]))
+        if kind == "pe":
+            Wp[:out, :PE_DIM] = W
+        elif kind == "h":
+            Wp[:out, :width] = W
+        else:
+            Wp[:out, :width] = W[:, :width]
+            Wp[:out, wp:wp + PE_DIM] = W[:, width:]
+        bp = np.zeros(_pad_to(out))
+        bp[:out] = b
+        weights.append(torch.from_numpy(Wp).to(device=device, dtype=dtype)
+                       .contiguous())
+        biases.append(torch.from_numpy(bp).to(device=device,
+                                              dtype=torch.float32))
+        inputs.append(kind)
+    return FoldedTrunk(weights, biases, inputs, wp,
+                       gnerf.fc9.linear.out_features)
+
+
+def encode_points(x: torch.Tensor) -> torch.Tensor:
+    """[N, 3] -> [N, 64] zero-padded extended PE, float32."""
+    pe = positional_encode(x.float(), PE_FREQS, True)
+    return torch.nn.functional.pad(pe, (0, PE_PAD - PE_DIM))
+
+
+def trunk_apply_reference(pe: torch.Tensor, folded: FoldedTrunk,
+                          fast_sine: bool = False) -> torch.Tensor:
+    """The plain version of K3: [N, 64] f32 PE -> [N, out_features] f32.
+    Each layer's input is cast to W's dtype, the product accumulates in
+    float32 (bf16 x bf16 products are exact in f32), b' is added in f32."""
+    sin = fast_sin if fast_sine else torch.sin
+    h = None
+    for w, b, kind in zip(folded.weights, folded.biases, folded.inputs):
+        x = pe if kind == "pe" else (torch.cat([h, pe], 1)
+                                     if kind == "h+pe" else h)
+        h = sin(x.to(w.dtype).float() @ w.float().t() + b)
+    return h[:, :folded.out_features]
+
+
+def _launcher():
+    lib = cuda_build.load(KERNEL)
+    fn = lib.trunk_infer_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p] + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.trunk_infer_error_string.argtypes = [ctypes.c_int]
+        lib.trunk_infer_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
+                fast_sine: bool = False) -> torch.Tensor:
+    """[N, 64] float32 PE -> [N, out_features] float32 x_enc.
+
+    CPU tensor: the plain version.  CUDA tensor: the hand-written kernel
+    (``csrc/trunk_infer.cu``), launched on the current stream, or an error.
+    """
+    if pe.device.type == "cpu":
+        return trunk_apply_reference(pe, folded, fast_sine)
+    if pe.device.type != "cuda":
+        raise ValueError(f"trunk_apply takes a cpu or cuda tensor, got "
+                         f"{pe.device}")
+    if pe.dtype != torch.float32 or pe.dim() != 2 \
+            or pe.shape[1] != PE_PAD or not pe.is_contiguous():
+        raise ValueError(f"trunk_apply takes a contiguous [N, {PE_PAD}] "
+                         f"float32 PE, got {tuple(pe.shape)} {pe.dtype}")
+    if folded.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"trunk kernel takes float32 or bfloat16 weights, "
+                         f"got {folded.dtype}")
+    for t in folded.weights + folded.biases:
+        if t.device != pe.device or not t.is_contiguous():
+            raise ValueError("folded trunk weights must be contiguous and on "
+                             f"the PE's device {pe.device}")
+    n = pe.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"trunk kernel takes fewer than 2^31 rows, got {n}")
+    out = torch.empty((n, folded.out_features), dtype=torch.float32,
+                      device=pe.device)
+    if n == 0:
+        return out
+    lib = _launcher()
+    with torch.cuda.device(pe.device):      # launch on the tensors' card
+        err = lib.trunk_infer_launch(
+            folded.layer_table().data_ptr(), len(folded.weights),
+            pe.data_ptr(), out.data_ptr(), n, PE_PAD, folded.out_features,
+            folded.width_pad + PE_PAD, folded.width_pad,
+            int(folded.dtype == torch.bfloat16), int(fast_sine),
+            torch.cuda.current_stream(pe.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"trunk_infer launch failed: "
+            f"{lib.trunk_infer_error_string(err).decode()} (widths "
+            f"{folded.width_pad} + PE {PE_PAD} may exceed shared memory)")
+    trunk_apply.launches += 1
+    return out
+
+
+trunk_apply.launches = 0
+
+
+class FusedTrunk:
+    """A ``GNeRF``'s trunk folded once onto its device, evaluated through
+    :func:`trunk_apply`.  The network's own heads stay plain PyTorch
+    (``models/tnerf``); :meth:`sigma` and :meth:`sigma_color` apply the
+    sigma and color heads in float32, as the JAX ``FusedTrunk`` does."""
+
+    def __init__(self, gnerf):
+        self.gnerf = gnerf
+        self.fast_sine = gnerf.fast_sine
+        self.folded = fold_trunk(gnerf, gnerf.dtype or torch.float32)
+
+    def x_enc(self, pts: torch.Tensor) -> torch.Tensor:
+        """[N, 3] points -> [N, width/2] float32 encoding."""
+        return trunk_apply(encode_points(pts).contiguous(), self.folded,
+                           self.fast_sine)
+
+    def _head(self, head, enc):
+        return F.linear(enc, head.weight.float(), head.bias.float())
+
+    @torch.no_grad()
+    def sigma(self, pts: torch.Tensor) -> torch.Tensor:
+        """[N, 3] -> softplus(rho_raw) [N, 1]: density alone."""
+        return F.softplus(self._head(self.gnerf.fc10Sigma, self.x_enc(pts)))
+
+    @torch.no_grad()
+    def sigma_color(self, pts: torch.Tensor):
+        """[N, 3] -> (softplus(rho_raw) [N, 1], col_raw [N, 3])."""
+        enc = self.x_enc(pts)
+        return (F.softplus(self._head(self.gnerf.fc10Sigma, enc)),
+                self._head(self.gnerf.fc10Col, enc))

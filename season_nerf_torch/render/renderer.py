@@ -1,0 +1,397 @@
+"""Novel-view rendering: the inference stack, in PyTorch.
+
+The render surfaces of ``season_nerf_tpu/render/renderer.py``:
+
+- whole-image render at any view/sun angle and time (``render_img``), with
+  optional exact secondary-ray shadows, and the nadir height map
+  (``get_dsm``);
+- per-sample raw component capture (``component_render``) and its
+  compositing into display images (``images_from_components``);
+- free perspective cameras (``render_perspective``).
+
+Rays are processed ``chunk`` rays per dispatch on the composite paths and
+``chunk`` points per dispatch on the exact-solar path; every dispatch runs
+the network once through the fused trunk kernel.  Results stay on the
+device until the frame is done, then cross to the host once.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from season_nerf_torch.ops import rendering
+from season_nerf_torch.ops.sampling import out_of_cube, sample_coarse
+from season_nerf_torch.utils import heartbeat
+
+
+def encode_time(year_frac, day_frac=0.0):
+    """4-dim periodic time encoding."""
+    return np.array([np.cos(year_frac * 2 * np.pi),
+                     np.sin(year_frac * 2 * np.pi),
+                     np.cos(day_frac * 2 * np.pi),
+                     np.sin(day_frac * 2 * np.pi)], dtype=np.float32)
+
+
+def dir_grid_rays(view_vec, out_size):
+    """Rays for an orthographic view along ``view_vec`` over the cube
+    footprint: a grid on the z=0 plane, extended to z=+-1.
+    -> (tops, bots, img_pts)."""
+    h, w = out_size[0], out_size[1]
+    xs = np.linspace(1, -1, h)
+    ys = np.linspace(-1, 1, w)
+    XY = np.stack(np.meshgrid(xs, ys, indexing="ij"), -1).reshape(-1, 2)
+    XYZ = np.concatenate([XY, np.zeros((XY.shape[0], 1))], 1)
+    v = np.asarray(view_vec, np.float64)
+    tops = XYZ + (v / v[2])[None, :]
+    bots = XYZ - (v / v[2])[None, :]
+    img_pts = np.stack(np.meshgrid(np.arange(h), np.arange(w),
+                                   indexing="ij"), -1).reshape(-1, 2)
+    return tops.astype(np.float32), bots.astype(np.float32), img_pts
+
+
+def perspective_rays(position, pitch_deg, yaw_deg, fov_deg, out_size,
+                     z_clip=(1.0, -1.0)):
+    """Free perspective camera rays: camera at ``position`` (cube coords),
+    pitched down from horizontal and yawed about z, square FOV, clipped to
+    the cube's z range.  -> (tops, bots, img_pts)."""
+    h, w = out_size[0], out_size[1]
+    fy = np.tan(np.deg2rad(fov_deg) / 2)
+    V, U = np.meshgrid(np.linspace(fy, -fy, h), np.linspace(-fy, fy, w),
+                       indexing="ij")
+    d = np.stack([np.ones_like(U), U, V], -1).reshape(-1, 3)
+    cp, sp = np.cos(np.deg2rad(pitch_deg)), np.sin(np.deg2rad(pitch_deg))
+    cy, sy = np.cos(np.deg2rad(yaw_deg)), np.sin(np.deg2rad(yaw_deg))
+    R_pitch = np.array([[cp, 0, -sp], [0, 1, 0], [sp, 0, cp]])
+    R_yaw = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
+    d = d @ (R_yaw @ R_pitch).T
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    p = np.asarray(position, np.float64)
+    dz = np.where(np.abs(d[:, 2]) < 1e-6, -1e-6, d[:, 2])
+    t_top = (z_clip[0] - p[2]) / dz
+    t_bot = (z_clip[1] - p[2]) / dz
+    t0 = np.maximum(np.minimum(t_top, t_bot), 0.0)
+    t1 = np.maximum(t_top, t_bot)
+    tops = p[None] + t0[:, None] * d
+    bots = p[None] + t1[:, None] * d
+    img_pts = np.stack(np.meshgrid(np.arange(h), np.arange(w),
+                                   indexing="ij"), -1).reshape(-1, 2)
+    good = t1 > t0
+    return (tops[good].astype(np.float32), bots[good].astype(np.float32),
+            img_pts[good])
+
+
+def render_chunk_outputs(model, tops, bots, sun, t4, *, n_samples: int,
+                         classic_solar: bool, with_samples: bool = False):
+    """The full-composite per-chunk contract: per-ray rendered color, raw
+    shadow visibility, expected surface height, accumulated opacity.
+    ``with_samples`` also returns the per-sample hit weights and points,
+    so an exact-shadow pass casts its secondary rays from the samples the
+    composite used."""
+    out = rendering.eval_rays(model, tops, bots, sun, t4,
+                              n_samples=n_samples,
+                              classic_solar=classic_solar,
+                              mask_out_of_cube=True)
+    surf, _ = rendering.expected_surface(out["ps"], out["pts"],
+                                         out["deltas"])
+    res = {"rendered": out["rendered"],
+           "shadow_raw": torch.sum(out["ps"] * out["vis"], dim=1)[:, 0],
+           "height": surf[:, 2], "ps_sum": torch.sum(out["ps"], dim=(1, 2))}
+    if with_samples:
+        res["ps"] = out["ps"][:, :, 0]
+        res["pts"] = out["pts"]
+    return res
+
+
+class Renderer:
+    """Whole-image renderer over a trained T-NeRF (a ``TNeRF`` in eval mode
+    whose weights already sit on the device to render on)."""
+
+    def __init__(self, model, n_samples=96, chunk=5_120, classic_solar=False,
+                 sun_frame: Optional[np.ndarray] = None,
+                 use_hsluv: bool = False):
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        self.n_samples = n_samples
+        self.chunk = max(chunk, 16)     # rays (or exact-solar points) per
+        #                                 dispatch; output is chunk-invariant
+        self.classic_solar = classic_solar
+        self.sun_frame = sun_frame
+        # a model trained on HSLuv targets renders in that space: rendered
+        # colors are converted back to sRGB
+        self.use_hsluv = use_hsluv
+
+    def _put(self, arr) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
+            self.device)
+
+    # -- per-chunk programs --------------------------------------------------
+    def _full_chunk(self, tops, bots, sun, t4, with_samples=False):
+        return render_chunk_outputs(self.model, tops, bots, sun, t4,
+                                    n_samples=self.n_samples,
+                                    classic_solar=self.classic_solar,
+                                    with_samples=with_samples)
+
+    def _component_chunk(self, tops, bots, sun, t4):
+        """Per-sample raw components (forward_separate), with the steps of
+        samples outside the cube zeroed."""
+        S, R, C = self.n_samples, tops.shape[0], self.model.n_classes
+        pts, deltas = sample_coarse(tops, bots, S, include_end=True)
+        deltas = torch.where(out_of_cube(pts)[..., None],
+                             torch.zeros_like(deltas), deltas)
+        probs_r, sun_pe_r, sky_raw_r = self.model.ray_consts(sun, t4)
+        bc = rendering.broadcast_rays
+        out = self.model.forward_separate(
+            pts.reshape(-1, 3), None, None, probs=bc(probs_r, S),
+            sun_pe=bc(sun_pe_r, S), sky_raw=bc(sky_raw_r, S))
+        return {
+            "pts": pts, "deltas": deltas,
+            "rho": out["rho"].reshape(R, S, 1),
+            "col_raw": out["col_raw"].reshape(R, S, 3),
+            "vis": out["vis"].reshape(R, S, 1),
+            "sky": out["sky"].reshape(R, S, 3),
+            "class_probs": out["class_probs"].reshape(R, S, C),
+            "adjust_per_class": out["adjust_per_class"].reshape(R, S, C, 3),
+        }
+
+    def _exact_solar_chunk(self, pts, sun_vec):
+        """Exact secondary-ray solar transmittance at [n, 3] points: a sun
+        ray from each point to z=+1, sigma integrated over its S-1 steps,
+        one network pass per step (the O(n*S) secondary points are never
+        held at once)."""
+        S = self.n_samples
+        k = (1.0 - pts[:, 2]) / sun_vec[2]
+        tops = pts + k[:, None] * sun_vec[None, :]
+        delta = torch.sqrt(torch.sum((tops - pts) ** 2, dim=1))[:, None] / S
+        tau = torch.zeros((pts.shape[0], 1), device=pts.device)
+        for j in range(S - 1):
+            # the step fraction in float32, as the JAX scan computes it
+            s = np.float32(j) / np.float32(S - 1)
+            spts = tops * float(np.float32(1.0) - s) + pts * float(s)
+            d = torch.where(out_of_cube(spts)[:, None],
+                            torch.zeros_like(delta), delta)
+            tau = tau + self.model.sigma_only(spts) * d
+        return torch.exp(-tau)[:, 0]
+
+    @torch.no_grad()
+    def _exact_solar_points(self, pts_flat, sun_vec):
+        """Exact solar transmittance at [N, 3] flat points, ``chunk`` points
+        per dispatch -> [N] numpy."""
+        sv = torch.tensor(np.asarray(sun_vec, np.float32), device=self.device)
+        outs = []
+        for s in range(0, pts_flat.shape[0], self.chunk):
+            outs.append(self._exact_solar_chunk(
+                self._put(pts_flat[s:s + self.chunk]), sv))
+            heartbeat.beat()
+        return torch.cat(outs).cpu().numpy()
+
+    # -- chunk loop ----------------------------------------------------------
+    @torch.no_grad()
+    def _run_chunks(self, kernel, tops, bots, sun, t4, keys):
+        outs = {k: [] for k in keys}
+        for s in range(0, tops.shape[0], self.chunk):
+            sl = slice(s, s + self.chunk)
+            res = kernel(self._put(tops[sl]), self._put(bots[sl]),
+                         self._put(sun[sl]), self._put(t4[sl]))
+            for k in keys:
+                outs[k].append(res[k])
+            heartbeat.beat()
+        return {k: torch.cat(v).float().cpu().numpy()
+                for k, v in outs.items()}
+
+    def render_rays(self, tops, bots, sun_vec, t4_row, with_samples=False):
+        """Full composite render of arbitrary rays -> dict of flat arrays.
+        ``with_samples`` also returns per-sample ps/pts (for exact shadows)."""
+        n = tops.shape[0]
+        sun = np.broadcast_to(np.asarray(sun_vec, np.float32), (n, 3))
+        t4 = np.broadcast_to(np.asarray(t4_row, np.float32), (n, 4))
+        keys = ["rendered", "shadow_raw", "height", "ps_sum"]
+        if with_samples:
+            keys += ["ps", "pts"]
+        res = self._run_chunks(
+            functools.partial(self._full_chunk, with_samples=with_samples),
+            tops, bots, sun, t4, keys)
+        if self.use_hsluv:
+            from season_nerf_torch.utils.hsluv import hsluv_normalized_to_rgb
+            res["rendered"] = hsluv_normalized_to_rgb(
+                np.clip(res["rendered"], 0, 1)).astype(np.float32)
+        return res
+
+    # -- public API ----------------------------------------------------------
+    def render_img(self, view_el_az, sun_el_az, time_frac, out_size,
+                   angles_to_vec=None, exact_shadow=False):
+        """Whole-image render -> dict with Col_Img, Shadow_Mask (gated),
+        Height, PS_Sum and Mask; ``exact_shadow`` adds Exact_Shadow_Mask from
+        secondary-ray transmittance."""
+        to_vec = angles_to_vec or _default_angles_to_vec(self.sun_frame)
+        view_vec = to_vec(*view_el_az)
+        sun_vec = to_vec(*sun_el_az)
+        tops, bots, img_pts = dir_grid_rays(view_vec, (out_size, out_size))
+        res = self.render_rays(tops, bots, sun_vec, encode_time(time_frac),
+                               with_samples=exact_shadow)
+        ij = (img_pts[:, 0], img_pts[:, 1])
+        col = np.zeros((out_size, out_size, 3), np.float32)
+        shadow = np.zeros((out_size, out_size), np.float32)
+        height = np.full((out_size, out_size), np.nan, np.float32)
+        ps_sum = np.zeros((out_size, out_size), np.float32)
+        mask = np.zeros((out_size, out_size), bool)
+        col[ij] = res["rendered"]
+        shadow[ij] = res["shadow_raw"]
+        height[ij] = res["height"]
+        ps_sum[ij] = res["ps_sum"]
+        mask[ij] = True
+        out = {"Col_Img": col, "Shadow_Mask": shadow, "Height": height,
+               "PS_Sum": ps_sum, "Mask": mask}
+        if exact_shadow:
+            # secondary sun rays from the same samples the composite used
+            exact = self._exact_solar_points(
+                res["pts"].reshape(-1, 3), sun_vec).reshape(
+                    -1, self.n_samples)
+            ex = np.zeros((out_size, out_size), np.float32)
+            ex[ij] = np.sum(res["ps"] * exact, 1)
+            out["Exact_Shadow_Mask"] = ex
+        return out
+
+    def render_perspective(self, position, pitch_deg, yaw_deg, fov_deg,
+                           out_size, sun_el_az, time_frac,
+                           angles_to_vec=None):
+        """Free-camera perspective render."""
+        to_vec = angles_to_vec or _default_angles_to_vec(self.sun_frame)
+        tops, bots, img_pts = perspective_rays(position, pitch_deg, yaw_deg,
+                                               fov_deg, (out_size, out_size))
+        res = self.render_rays(tops, bots, to_vec(*sun_el_az),
+                               encode_time(time_frac))
+        col = np.zeros((out_size, out_size, 3), np.float32)
+        mask = np.zeros((out_size, out_size), bool)
+        col[img_pts[:, 0], img_pts[:, 1]] = res["rendered"]
+        mask[img_pts[:, 0], img_pts[:, 1]] = True
+        return {"Col_Img": col, "Mask": mask}
+
+    def get_dsm(self, out_size, min_ps_sum=1e-2):
+        """Nadir expected-height map in [-1, 1]; NaN where nothing was hit
+        (accumulated hit probability under ``min_ps_sum``) or no ray was
+        evaluated."""
+        out = self.render_img((90.0, 0.0), (90.0, 0.0), 0.0, out_size)
+        h = out["Height"].copy()
+        h[out["PS_Sum"] < min_ps_sum] = np.nan
+        return h
+
+    def component_render(self, tops, bots, sun_vec, year_frac,
+                         exact_solar=False):
+        """Per-sample raw components of arbitrary rays."""
+        n = tops.shape[0]
+        sun = np.broadcast_to(np.asarray(sun_vec, np.float32), (n, 3))
+        t4 = np.broadcast_to(encode_time(year_frac), (n, 4))
+        keys = ["pts", "deltas", "rho", "col_raw", "vis", "sky",
+                "class_probs", "adjust_per_class"]
+        res = self._run_chunks(self._component_chunk, tops, bots, sun, t4,
+                               keys)
+        if exact_solar:
+            res["exact_solar"] = self._exact_solar_points(
+                res["pts"].reshape(-1, 3), sun_vec).reshape(
+                    n, self.n_samples, 1)
+        # marks the color space for images_from_components
+        res["hsluv"] = self.use_hsluv
+        return res
+
+    def component_render_by_dir(self, view_el_az, sun_el_az, time_frac,
+                                out_size, angles_to_vec=None,
+                                exact_solar=False):
+        to_vec = angles_to_vec or _default_angles_to_vec(self.sun_frame)
+        sun_vec = to_vec(*sun_el_az)
+        tops, bots, img_pts = dir_grid_rays(to_vec(*view_el_az), out_size)
+        res = self.component_render(tops, bots, sun_vec, time_frac,
+                                    exact_solar)
+        res["img_pts"] = img_pts
+        res["sun_vec"] = np.asarray(sun_vec)
+        return res
+
+
+def _default_angles_to_vec(sun_frame):
+    from season_nerf_torch.geometry.units import elevation_azimuth_to_vec
+
+    def to_vec(el, az):
+        v = elevation_azimuth_to_vec(el, az)
+        if sun_frame is not None:
+            v = sun_frame @ v
+            v = v / np.linalg.norm(v)
+        return v
+    return to_vec
+
+
+def _sig(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def images_from_components(res: Dict[str, np.ndarray], out_size,
+                           classic_shadows: bool = False):
+    """Composite raw per-sample components into display images:
+    Base_Img, Season_Adj_Img, Extreme_Imgs (per class), Shadow_Mask,
+    Raw_Shadow_Mask, Shadow_Adjust (+ the _Exact variants when exact solar
+    was rendered), Sky_Col, Time_Class.  Unrendered pixels are NaN."""
+    rho, deltas = res["rho"], res["deltas"]
+    ij = res["img_pts"]
+    H, W = out_size[0], out_size[1]
+    tau = np.cumsum(rho * deltas, axis=1)
+    pv = np.exp(-np.concatenate([np.zeros_like(tau[:, :1]), tau[:, :-1]], 1))
+    ps = pv * (1 - np.exp(-rho * deltas))
+
+    # compositing happens in the model's color space; a normalized-HSLuv
+    # model's composited colors are converted to sRGB for display
+    if res.get("hsluv"):
+        from season_nerf_torch.utils.hsluv import hsluv_normalized_to_rgb
+
+        def to_rgb(v):
+            return hsluv_normalized_to_rgb(np.clip(v, 0, 1)).astype(
+                np.float32)
+    else:
+        def to_rgb(v):
+            return v
+
+    sky = res["sky"][0, 0]      # forward_separate emits the activated sky
+    sky_disp = to_rgb(sky)
+    probs = res["class_probs"]
+    mix = np.einsum("rsc,rscd->rsd", probs, res["adjust_per_class"])
+
+    def scatter(vals, ch=3):
+        img = np.full((H, W, ch) if ch > 1 else (H, W), np.nan, np.float32)
+        img[ij[:, 0], ij[:, 1]] = vals
+        return img
+
+    base_cols = np.sum(ps * _sig(res["col_raw"]), 1)
+    season_cols = np.sum(ps * _sig(res["col_raw"] + mix), 1)
+    extreme = [scatter(to_rgb(np.sum(
+        ps * _sig(res["col_raw"] + res["adjust_per_class"][:, :, c]), 1)))
+        for c in range(res["adjust_per_class"].shape[2])]
+
+    def shadow_maps(vis_key):
+        raw = scatter(np.sum(ps * res[vis_key], 1)[:, 0], ch=1)
+        gated = _sig((raw - 0.2) * 30.0)
+        adjust = (gated[..., None]
+                  + (1 - gated[..., None]) * sky_disp[None, None])
+        if classic_shadows:
+            # ratio of shadow-attenuated to plain composite, in the model's
+            # own color space (a multiplicative map)
+            term = res[vis_key] + (1 - res[vis_key]) * res["sky"]
+            col_adj = _sig(res["col_raw"] + mix) * term
+            adjust = scatter(np.sum(ps * col_adj, 1) / (season_cols + 1e-8))
+        return raw, gated, adjust
+
+    raw_sm, sm, adj = shadow_maps("vis")
+    out = {
+        "Base_Img": scatter(to_rgb(base_cols)),
+        "Season_Adj_Img": scatter(to_rgb(season_cols)),
+        "Extreme_Imgs": extreme,
+        "Shadow_Mask": sm, "Raw_Shadow_Mask": raw_sm, "Shadow_Adjust": adj,
+        "Sky_Col": sky_disp,
+        "Time_Class": probs[0, 0],
+    }
+    if "exact_solar" in res:
+        raw_e, sm_e, adj_e = shadow_maps("exact_solar")
+        out.update({"Shadow_Mask_Exact": sm_e,
+                    "Raw_Shadow_Mask_Exact": raw_e,
+                    "Shadow_Adjust_Exact": adj_e})
+    return out

@@ -1,0 +1,100 @@
+"""The port stands alone: no module of ``season_nerf_torch``, and not
+``chip_smoke.py``, imports JAX, the JAX package, or a package the GPU
+machine lacks (msgpack, PIL, matplotlib).  Checked twice: statically over
+every source file, and by rendering on the CPU in a fresh interpreter in
+which importing any of them raises."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "matplotlib",
+          "season_nerf_tpu")
+SOURCES = sorted((ROOT / "season_nerf_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_banned_import_in_source(path):
+    bad = sorted(set(_imported_roots(path)) & set(BANNED))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+SCRIPT = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys, tempfile, os
+    BANNED = set(sys.argv[2].split(","))
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BANNED:
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import season_nerf_torch
+    for m in pkgutil.walk_packages(season_nerf_torch.__path__,
+                                   "season_nerf_torch."):
+        importlib.import_module(m.name)
+
+    from season_nerf_torch.config import Config
+    from season_nerf_torch.data.ingest import save_world_artifact
+    from season_nerf_torch.models.tnerf import model_from_config
+    from season_nerf_torch.render.loading import load_model_dir
+    from season_nerf_torch.render.serving import RenderService, png_bytes
+    from season_nerf_torch.train.state import save_model_artifact
+
+    d = tempfile.mkdtemp()
+    cfg = Config(site_name="standalone", fc_units=32, fc_layers=2,
+                 n_samples=8, chunk=40)
+    cfg.save_json(os.path.join(d, "opts.json"))
+    torch.manual_seed(0)
+    save_model_artifact(os.path.join(d, "Final_Model.nn"),
+                        model_from_config(cfg).state_dict())
+    save_world_artifact(os.path.join(d, "W2C_W2L_H.npy"), None, None,
+                        (0.0, 30.0))
+    r = load_model_dir(d, device="cpu").renderer
+    out = r.render_img((70.0, 30.0), (45.0, 160.0), 0.4, 8,
+                       exact_shadow=True)
+    assert out["Col_Img"].shape == (8, 8, 3)
+    for k in ("Col_Img", "Shadow_Mask", "Exact_Shadow_Mask", "PS_Sum"):
+        assert np.isfinite(out[k]).all(), k
+    svc = RenderService(d, device="cpu")
+    assert png_bytes(svc.render_view((70, 30), (45, 160), 0.4, size=8)
+                     )[:8] == b"\\x89PNG\\r\\n\\x1a\\n"
+    dsm, units = svc.dsm(8)
+    assert dsm.shape == (8, 8) and units == "meters"
+    loaded = sorted(k for k in sys.modules if k.split(".")[0] in BANNED)
+    assert not loaded, loaded
+    print("RENDERED")
+""")
+
+
+def test_port_renders_with_jax_and_the_jax_package_blocked():
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-I", "-c", SCRIPT, str(ROOT), ",".join(BANNED)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.strip().endswith("RENDERED")
