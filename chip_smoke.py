@@ -6,25 +6,40 @@
 Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the render path from ``season_nerf_torch/csrc``
-   (one ``nvcc`` per source, started together) and print what ``ptxas``
+2. build every CUDA kernel of the port from ``season_nerf_torch/csrc``: K3
+   (``trunk_infer``), K1 (``trunk_train_fwd``) and K2 (``trunk_train_bwd``),
+   one ``nvcc`` per source, started together, and print what ``ptxas``
    reports (registers, shared memory, spills);
-3. hold each kernel against its plain PyTorch version at the shapes of the
-   flagship render chunk (width 512, fc1..fc8 + fc9, 5120 rays x 96
-   samples) and at a ragged row count, in bf16 and f32 with the polynomial
-   and the exact sine, with BatchNorm statistics that are not trivial;
-   time the kernel and the plain version with CUDA events beside the
-   kernel's bound;
-4. write a full-width model directory (``Config()`` defaults, seeded random
-   weights) with the port's own writer, load it onto the card, serve it
-   over HTTP on an ephemeral localhost port and issue a fixed set of
-   ``/healthz``, ``/render`` and ``/dsm`` requests; check statuses, that
-   every body decodes, that the launch counts of the kernels match the
-   chunking, and that a small render agrees with the CPU path (plain
-   versions) on the same model directory; then time 10 warm 128 px
-   renders from one client and profile one (device time by kernel, the
+3. hold each kernel against its plain PyTorch version:
+   - K3 at the shapes of the flagship render chunk (width 512, fc1..fc8 +
+     fc9, 5120 rays x 96 samples) and at a ragged row count, in bf16 and
+     f32 with the polynomial and the exact sine, with BatchNorm statistics
+     that are not trivial;
+   - K1 and K2 at the flagship training shape (4096 rays x 96 samples,
+     tile 2048, width 512, bf16, both sines), in f32 at a reduced row
+     count, and at a 32-wide spec with tile 64 and a ragged tile count;
+   and time the flagship cases with CUDA events beside the kernel's bound
+   and its plain version;
+4. the serving main path: write a full-width model directory (``Config()``
+   defaults, seeded random weights) with the port's own writer, load it
+   onto the card, serve it over HTTP on an ephemeral localhost port and
+   send a fixed set of ``/healthz``, ``/render`` and ``/dsm`` requests;
+   check statuses, that every body decodes, that the launch counts of K3
+   match the chunking, and that a small render agrees with the CPU path
+   (plain versions) on the same model directory; then time 10 warm 128 px
+   renders from one client and profile one (device time by kind, the
    device's idle share);
-5. print one ``{"kernels": [...]}`` line, then, as the last line,
+5. the training main path: the flagship training config with
+   ``pallas_trunk`` through ``Trainer`` on the synthetic site of
+   ``bench.py`` in phase 1 (DSM prior on), one warm step and 20 timed
+   ones; check finite losses, two K1 launches and one K2 launch a step,
+   and that weights and running statistics moved; profile one step; write
+   ``Final_Model.nn`` and render it through the serving loader; time 5
+   steps of the default trunk (full-batch BatchNorm) for the record; train
+   a small bf16 model 3 steps on the CPU and on the card from the same
+   weights and draws and compare step 0's gradient of every leaf and the
+   losses;
+6. print one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no CUDA device is visible or the
@@ -46,6 +61,7 @@ import time
 import urllib.error
 import urllib.request
 import zlib
+from dataclasses import replace as dataclass_replace
 
 import numpy as np
 import torch
@@ -66,6 +82,7 @@ STEADY_REQUESTS = 10
 # profiled device time grouped by kind: the first kind whose marks occur
 # in a kernel's name (lower case) takes it
 KERNEL_KINDS = (("K3 trunk_infer", ("trunk_bf16", "trunk_f32")),
+                ("K1+K2 trunk_train", ("tt::",)),
                 ("GEMM", ("gemm", "cutlass", "nvjet")),
                 ("copy/cast", ("copy",)),
                 ("elementwise", ("elementwise",)))
@@ -81,6 +98,28 @@ TOL = {torch.float32: (1e-3, 1e-5), torch.bfloat16: (1e-1, 2e-3)}
 # a 16 px render on the card against the CPU path (plain versions) on the
 # same model directory: bf16 colors and heights
 RENDER_TOL = 5e-2
+# the training main path: flagship steps timed after one warm step
+TRAIN_STEPS = 20
+DEFAULT_TRUNK_STEPS = 5
+# 3 steps of a small bf16 model (width 256, 64 rays x 32 samples = one
+# 2048-row tile) on the CPU (plain versions) and on the card (K1/K2) from the
+# same weights and draws.  The two run the same bf16 arithmetic in other
+# orders; a flipped bf16 rounding moves x_enc by up to 4e-2 (the K1
+# tolerance above).  Each loss is held to 2e-3 relative (or 1e-3 absolute),
+# 6x the worst reading (H100: 3.5e-4).  The losses say little about the
+# backward: OneCycle starts at lr / 25 and Adam divides out the gradient's
+# scale, so the weights barely move in 3 steps.  So step 0's gradient of
+# every leaf is held too, its max abs difference over its own max
+# |gradient|, to 3e-2: 2.5x the worst reading (H100: 1.2e-2 on
+# fc3.norm.bias, median 4.6e-3 over 60 leaves).  A linear bias that feeds a
+# BatchNorm has a zero gradient in exact arithmetic (the normalization
+# subtracts it out), so both sides give rounding noise (H100: at most 1.9e-6
+# of the layer's largest weight gradient); each side is held below 1e-4 of
+# that instead.
+CPU_CARD_STEPS = 3
+CPU_CARD_RTOL, CPU_CARD_ATOL = 2e-3, 1e-3
+CPU_CARD_GRAD_RTOL = 3e-2
+BN_BIAS_NOISE = 1e-4
 
 
 def fail(msg: str):
@@ -258,6 +297,190 @@ def check_trunk_small_widths(device):
                          f"fast_sine={fast_sine}: {err}")
 
 
+# --- K1 and K2 against their plain versions ----------------------------------
+# K1 (x_enc in [-1, 1]): the K3 tolerances above, for the same reason: an
+# f32 accumulation-order difference can flip one bf16 rounding of an
+# activation and the flip propagates through the later layers.  The heads
+# and the statistics sums are held relative to their largest magnitude.
+# K2: each gradient's max error relative to its max |value|, or to 1 where
+# that is smaller: the bias gradient of a BN layer is zero up to rounding
+# (the tile's dz sums to zero), so only its absolute error means anything,
+# as in tests/test_pallas_train.py.  bf16: the
+# forward recompute flips bf16 roundings as K1 does, and the gradient
+# products take bf16 operands (dz, the activations), so a few per cent of
+# the largest value; f32: accumulation order over up to 393,216 rows.
+K1_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+K2_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+TRAIN_N = 4096 * 96             # flagship points per training step
+TRAIN_F32_N = 16 * 2048         # the f32 check, reduced
+
+
+def train_params(spec, seed):
+    """Kernel params for ``spec`` at the scale of a SIREN trunk with omega
+    folded in (weights U(+-sqrt(6 / fan_in))), BN scale and shift around 1
+    and 0, and the heads' four zero columns."""
+    from season_nerf_torch.ops import fused_train as ftr
+    rng = np.random.default_rng(seed)
+    packed = []
+    for i in range(spec.n_layers):
+        fan, w = spec.in_dims[i], spec.widths[i]
+        packed.append(rng.uniform(-1, 1, (fan, w)) * np.sqrt(6.0 / fan))
+        packed.append(rng.uniform(-1, 1, (1, w)))
+        if spec.has_bn[i]:
+            packed.append(1.0 + 0.1 * rng.standard_normal((1, w)))
+            packed.append(0.1 * rng.standard_normal((1, w)))
+    wh = rng.uniform(-1, 1, (spec.enc_width, ftr.HEAD_PAD)) / 4.0
+    wh[:, 4:] = 0.0
+    packed += [wh, 0.1 * rng.standard_normal((1, ftr.HEAD_PAD))]
+    return ftr.kernel_params(spec, [torch.tensor(p, dtype=torch.float32)
+                                    for p in packed])
+
+
+def train_flops(spec, n):
+    """(K1, K2) operations: 2 x multiply-adds over the trunk without its
+    padding and the four real head columns.  K2 = its forward recompute +
+    every dW + every da (none below the first layer; the skip layer's h
+    rows only)."""
+    pe = 63 if spec.pe_dim == 64 else spec.pe_dim     # the PE's real width
+    fwd = da = spec.enc_width * 4
+    for i, w in enumerate(spec.widths):
+        fwd += w * (pe if i == 0 else spec.widths[i - 1]
+                    + (pe if spec.is_skip(i) else 0))
+        da += w * spec.widths[i - 1] if i > 0 else 0
+    return 2.0 * n * fwd, 2.0 * n * (2 * fwd + da)
+
+
+def design_floor_bytes(spec, n, act_bytes, grad_bytes):
+    """(K1, K2) bytes the layer-major design itself moves through HBM, at
+    the least: per layer its input activation read, f32 z written and read
+    back for the tile statistics, and its activation written; K2 adds per
+    layer its kept f32 zh and the f32 input gradient read, dz written and
+    read twice (dW, da), the input activation read again and the f32 input
+    gradient written.  What a design that keeps a tile on chip removes."""
+    k1 = k2 = 0
+    for k, w in zip(spec.in_dims, spec.widths):
+        fwd = n * (k * act_bytes + 2 * 4 * w + w * act_bytes)
+        k1 += fwd
+        k2 += fwd + n * (2 * 4 * w + 3 * grad_bytes * w + k * act_bytes
+                         + 4 * k)
+    return k1, k2
+
+
+def check_train_kernels(device) -> dict:
+    """K1 and K2 against trunk_fwd_reference / trunk_bwd_reference: at the
+    flagship training shape (N = 393,216, tile 2048, width 512, bf16, with
+    the polynomial and the exact sine), in f32 at a reduced N, and at a
+    32-wide spec with tile 64 and a ragged tile count (37 tiles).  Times the
+    flagship bf16 case (polynomial sine) beside its bound."""
+    from season_nerf_torch.ops import fused_train as ftr
+    flag = ftr.TrunkSpec()
+    small = dict(widths=(32, 32, 32, 16), skip_idx=2, pe_dim=16, tile=64)
+    cases = [("flagship,bf16,fast_sin", flag, TRAIN_N),
+             ("flagship,bf16,sinf", dataclass_replace(flag, fast_sine=False),
+              TRAIN_N),
+             ("flagship,f32,fast_sin",
+              dataclass_replace(flag, act_dtype="float32",
+                                grad_dtype="float32"), TRAIN_F32_N),
+             ("w32,tile64,bf16", ftr.TrunkSpec(**small), 64 * 37),
+             ("w32,tile64,f32", ftr.TrunkSpec(**small, act_dtype="float32",
+                                             grad_dtype="float32"), 64 * 37)]
+    results = {}
+    for case, spec, n in cases:
+        dt = ftr._DTYPES[spec.act_dtype]
+        gen = torch.Generator(device=device).manual_seed(SEED + 7)
+        if spec.pe_dim == ftr.PE_PAD:
+            pe = ftr.encode_pe(torch.rand(n, 3, generator=gen,
+                                          device=device) * 2 - 1)
+        else:
+            pe = (torch.rand(n, spec.pe_dim, generator=gen, device=device)
+                  * 2 - 1).to(torch.bfloat16)
+        params = [p.to(device) for p in train_params(spec, SEED)]
+        got = ftr.trunk_fwd(spec, pe, params)
+        want = ftr.trunk_fwd_reference(spec, pe, params)
+        torch.cuda.synchronize()
+        rec = {"n": n, "tile": spec.tile, "widths": list(spec.widths)}
+        err = (got[0].float() - want[0].float()).abs()
+        rec["xenc_max_abs_err"] = float(err.max())
+        rec["xenc_mean_abs_err"] = float(err.mean())
+        for k, name in ((1, "heads"), (2, "stats")):
+            rec[f"{name}_rel_err"] = float(
+                (got[k] - want[k]).abs().max() / want[k].abs().max())
+        rec["k1_max_abs_err"] = max(float((g.float() - w.float()).abs().max())
+                                    for g, w in zip(got, want))
+        ok = all(torch.isfinite(t.float()).all() for t in got)
+        tol_max, tol_mean = TOL[dt]
+        bad = (not ok or rec["xenc_max_abs_err"] > tol_max
+               or rec["xenc_mean_abs_err"] > tol_mean
+               or rec["heads_rel_err"] > K1_REL_TOL[dt]
+               or rec["stats_rel_err"] > K1_REL_TOL[dt])
+        log(f"  K1 {case} N={n}: x_enc max {rec['xenc_max_abs_err']:.3e} "
+            f"mean {rec['xenc_mean_abs_err']:.3e} (tol {tol_max:g}/"
+            f"{tol_mean:g}), heads rel {rec['heads_rel_err']:.3e}, stats "
+            f"rel {rec['stats_rel_err']:.3e} (tol {K1_REL_TOL[dt]:g})")
+        if bad:
+            fail(f"K1 {case} disagrees with trunk_fwd_reference: {rec}")
+        del got, want
+        gd = ftr._DTYPES[spec.grad_dtype]
+        d_xenc = (0.1 * torch.randn(n, spec.enc_width, generator=gen,
+                                    device=device)).to(gd)
+        d_heads = 0.1 * torch.randn(n, ftr.HEAD_PAD, generator=gen,
+                                    device=device)
+        got = ftr.trunk_bwd(spec, pe, params, d_xenc, d_heads)
+        want = ftr.trunk_bwd_reference(spec, pe, params, d_xenc, d_heads)
+        torch.cuda.synchronize()
+        rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1.0))
+               for a, b in zip(got, want)]
+        finite = all(torch.isfinite(a).all() for a in got)
+        rec["grad_rel_errs"] = rel
+        rec["grad_max_rel_err"] = max(rel)
+        rec["k2_max_abs_err"] = max(float((a - b).abs().max())
+                                    for a, b in zip(got, want))
+        log(f"  K2 {case} N={n}: max gradient error {max(rel):.3e} of its "
+            f"max |value| (tol {K2_REL_TOL[gd]:g}), max abs "
+            f"{rec['k2_max_abs_err']:.3e}")
+        if not finite or max(rel) > K2_REL_TOL[gd]:
+            fail(f"K2 {case} disagrees with trunk_bwd_reference: {rel}")
+        del got, want
+        if case == "flagship,bf16,fast_sin":
+            f1, f2 = train_flops(spec, n)
+            nbytes1 = (pe.numel() * 2 + n * spec.enc_width * dt.itemsize
+                       + n * ftr.HEAD_PAD * 4 + sum(
+                           p.numel() * p.element_size() for p in params))
+            nbytes2 = (pe.numel() * 2 + d_xenc.numel() * d_xenc.element_size()
+                       + d_heads.numel() * 4
+                       + 2 * sum(p.numel() * 4 for p in params))
+            floor1, floor2 = design_floor_bytes(spec, n, dt.itemsize,
+                                                gd.itemsize)
+            for name, fn, plain, flops, nb, floor in (
+                    ("k1", lambda: ftr.trunk_fwd(spec, pe, params),
+                     lambda: ftr.trunk_fwd_reference(spec, pe, params),
+                     f1, nbytes1, floor1),
+                    ("k2", lambda: ftr.trunk_bwd(spec, pe, params, d_xenc,
+                                                 d_heads),
+                     lambda: ftr.trunk_bwd_reference(spec, pe, params,
+                                                     d_xenc, d_heads),
+                     f2, nbytes2, floor2)):
+                t_ops = flops / PEAK_BF16_FLOPS * 1e3
+                t_bytes = nb / PEAK_BYTES * 1e3
+                rec[f"{name}_ms"] = cuda_ms(fn, 5)
+                rec[f"{name}_plain_ms"] = cuda_ms(plain, 2)
+                rec[f"{name}_bound_ms"] = max(t_ops, t_bytes)
+                rec[f"{name}_bound_by"] = ("operations" if t_ops >= t_bytes
+                                           else "bytes")
+                rec[f"{name}_flops"] = flops
+                rec[f"{name}_bytes"] = nb
+                rec[f"{name}_design_floor_ms"] = floor / PEAK_BYTES * 1e3
+                log(f"  {name.upper()} {case}: kernel {rec[name + '_ms']:.3f}"
+                    f" ms, plain {rec[name + '_plain_ms']:.3f} ms, bound "
+                    f"{rec[name + '_bound_ms']:.3f} ms "
+                    f"({rec[name + '_bound_by']}), the layer-major design's "
+                    f"own HBM floor {rec[name + '_design_floor_ms']:.3f} ms")
+        results[case] = rec
+        del pe, params, d_xenc, d_heads
+        torch.cuda.empty_cache()
+    return results
+
+
 # --- phase 4: the main path -------------------------------------------------
 def decode_png(body: bytes) -> np.ndarray:
     """8-bit gray/RGB/RGBA PNG with unfiltered scanlines (what the port's
@@ -313,17 +536,15 @@ def latency(port: int, path: str, n: int) -> dict:
             "rays_per_s": size * size / med}
 
 
-def profile_render(renderer, size: int) -> dict:
-    """One ``size`` px season render under ``torch.profiler``: device time
-    by kernel, device busy time against the render's wall time."""
+def profile_device(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: device time by kernel and by
+    kind, device busy time against the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    args = ((70.0, 30.0), (45.0, 180.0), 0.5, size)
-    renderer.render_img(*args)                      # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        renderer.render_img(*args)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
@@ -338,9 +559,32 @@ def profile_render(renderer, size: int) -> dict:
         kind = next((k for k, marks in KERNEL_KINDS
                      if any(m in name.lower() for m in marks)), "rest")
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
-    return {"size": size, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": (1 - busy / (wall * 1e3)) if busy else None,
             "by_kind_ms": by_kind, "kernels_ms": dict(top)}
+
+
+def log_profile(what: str, prof: dict):
+    if prof["device_busy_ms"] == 0:
+        log("  profiler: no device time traced (not measured)")
+        return
+    log(f"  profiler, {what}: wall {prof['wall_ms']:.2f} ms, device busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f}; by kind:")
+    for kind, ms in sorted(prof["by_kind_ms"].items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:9.3f} ms  {100 * ms / prof['device_busy_ms']:5.1f} %  "
+            f"{kind}")
+    log("  top kernels:")
+    for name, ms in list(prof["kernels_ms"].items())[:8]:
+        log(f"    {ms:9.3f} ms  {name[:100]}")
+
+
+def profile_render(renderer, size: int) -> dict:
+    """One ``size`` px season render under the profiler (after a warm
+    one)."""
+    args = ((70.0, 30.0), (45.0, 180.0), 0.5, size)
+    renderer.render_img(*args)
+    return {"size": size, **profile_device(lambda: renderer.render_img(*args))}
 
 
 def main_path(model, cfg, device) -> dict:
@@ -450,20 +694,243 @@ def main_path(model, cfg, device) -> dict:
 
         prof = profile_render(service.renderer, 128)
         report["profile_128px"] = prof
-        if prof["device_busy_ms"] == 0:
-            log("  profiler: no device time traced (not measured)")
-        else:
-            log(f"  profiler, one 128 px render: wall {prof['wall_ms']:.2f}"
-                f" ms, device busy {prof['device_busy_ms']:.2f} ms, idle "
-                f"share {prof['idle_share']:.3f}; by kind:")
-            for kind, ms in sorted(prof["by_kind_ms"].items(),
-                                   key=lambda kv: -kv[1]):
-                share = 100 * ms / prof["device_busy_ms"]
-                log(f"    {ms:9.3f} ms  {share:5.1f} %  {kind}")
-            log("  top kernels:")
-            for name, ms in list(prof["kernels_ms"].items())[:8]:
-                log(f"    {ms:9.3f} ms  {name[:100]}")
+        log_profile("one 128 px render", prof)
     return report
+
+
+def flagship_train_config(**kw):
+    """The flagship training configuration (``bench.py:85-90``) with the
+    fused trunk: width 512, fc1..fc8 + fc9, 4 seasonal classes, bf16,
+    polynomial sine, 96 samples, batch 4096, DSM prior on."""
+    from season_nerf_torch.config import Config
+    base = dict(max_train_steps=50_000, n_samples=96, batch_size=4096,
+                fc_units=512, n_saves=0, logs_dir="", jump_start=True,
+                compute_dtype="bfloat16", fast_sine=True, pallas_trunk=True,
+                seed=SEED)
+    base.update(kw)
+    return Config(**base)
+
+
+def finite_losses(scalars: dict) -> bool:
+    return all(bool(torch.isfinite(v)) for v in scalars.values())
+
+
+def train_path(device) -> dict:
+    """The training main path: the flagship config with ``pallas_trunk``
+    through ``Trainer`` on the synthetic site of ``bench.py:95-96``, phase 1
+    (prior on): one warm step, then TRAIN_STEPS timed steps.  The launch
+    counts are set to 0 just before the warm step and read just after the
+    last."""
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    from season_nerf_torch.ops import fused_train as ftr
+    from season_nerf_torch.train.engine import Trainer
+    report = {}
+    scene = make_scene(n_views=6, img_size=48, grid=64, seed=0)
+    table, _ = scene_ray_tables(scene, testing_size=1)
+    report["train_rays"] = len(table)
+    cfg = flagship_train_config()
+    tr = Trainer(cfg, table, prior_hm=scene.prior_hm, device=device)
+    g = tr.model.G_NeRF_net
+    watch = {"fc3.weight": g.fc3.linear.weight,
+             "fc5.running_mean": g.fc5.norm.running_mean,
+             "fc9.running_var": g.fc9.norm.running_var,
+             "fc10Sigma.weight": g.fc10Sigma.weight}
+    before = {k: t.detach().clone() for k, t in watch.items()}
+
+    ftr.trunk_fwd.launches = ftr.trunk_bwd.launches = 0
+    losses = [tr.train_step()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(tr.train_step())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1, k2 = ftr.trunk_fwd.launches, ftr.trunk_bwd.launches
+    steps = TRAIN_STEPS + 1
+    if tr.statics.trunk_spec is None:
+        fail("the flagship config did not take the fused trunk")
+    if k1 != 2 * steps or k2 != steps:
+        fail(f"{steps} steps launched K1 {k1} and K2 {k2} times; each step "
+             f"must launch K1 twice (camera and solar pass) and K2 once")
+    if not all(finite_losses(l) for l in losses):
+        fail(f"non-finite loss: {losses}")
+    moved = {k: float((watch[k].detach() - before[k]).abs().max())
+             for k in watch}
+    if not all(v > 0 for v in moved.values()):
+        fail(f"a parameter or running statistic did not move: {moved}")
+    report.update(
+        steps=steps, k1_launches=k1, k2_launches=k2,
+        step_ms=secs / TRAIN_STEPS * 1e3,
+        train_rays_per_s=cfg.batch_size * TRAIN_STEPS / secs,
+        first_loss={k: float(v) for k, v in losses[0].items()},
+        last_loss={k: float(v) for k, v in losses[-1].items()},
+        moved=moved,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  {steps} steps, K1 launches {k1}, K2 launches {k2}; "
+        f"{report['step_ms']:.1f} ms a step over {TRAIN_STEPS} timed steps, "
+        f"{report['train_rays_per_s']:.0f} train rays/s; Total "
+        f"{report['first_loss']['Total']:.3f} -> "
+        f"{report['last_loss']['Total']:.3f}; moved {moved}")
+
+    prof = profile_device(tr.train_step)
+    report["profile_step"] = prof
+    log_profile("one flagship training step", prof)
+
+    # train -> serve: the model written by finalize() renders
+    with tempfile.TemporaryDirectory() as d:
+        from season_nerf_torch.data.ingest import save_world_artifact
+        from season_nerf_torch.render.loading import load_model_dir
+        tr.cfg.logs_dir = d
+        tr.cfg.save_json(os.path.join(d, "opts.json"))
+        save_world_artifact(os.path.join(d, "W2C_W2L_H.npy"), None, None,
+                            (0.0, 30.0))
+        tr.finalize()
+        loaded = load_model_dir(d, device=device)
+        img = loaded.renderer.render_img((70.0, 30.0), (45.0, 180.0), 0.5,
+                                         16)
+        col = np.asarray(img["Col_Img"])
+        if col.shape != (16, 16, 3) or not np.isfinite(col).all():
+            fail(f"the trained model's render is {col.shape}, finite "
+                 f"{np.isfinite(col).all()}")
+        report["render_16px_mean"] = float(col.mean())
+        log(f"  finalize() -> Final_Model.nn -> load_model_dir -> 16 px "
+            f"render, mean color {report['render_16px_mean']:.4f}")
+    del tr, loaded
+    torch.cuda.empty_cache()
+
+    # for the record: the default trunk (full-batch BatchNorm), another
+    # function, so no yardstick for K1 and K2
+    tr = Trainer(flagship_train_config(pallas_trunk=False), table,
+                 prior_hm=scene.prior_hm, device=device)
+    tr.train_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DEFAULT_TRUNK_STEPS):
+        last = tr.train_step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not finite_losses(last):
+        fail(f"default trunk: non-finite loss {last}")
+    report["default_trunk_step_ms"] = secs / DEFAULT_TRUNK_STEPS * 1e3
+    log(f"  default trunk (full-batch BatchNorm, plain PyTorch): "
+        f"{report['default_trunk_step_ms']:.1f} ms a step over "
+        f"{DEFAULT_TRUNK_STEPS} steps")
+    del tr
+    torch.cuda.empty_cache()
+
+    report["cpu_vs_card"] = cpu_vs_card(table, scene.prior_hm, device)
+    return report
+
+
+def cpu_vs_card(table, prior_hm, device) -> dict:
+    """A small bf16 model (width 256, 8 layers, 64 rays x 32 samples, one
+    ghost tile) trained CPU_CARD_STEPS steps on the CPU (plain versions) and
+    on the card (K1/K2) from the same weights and the same draws."""
+    from season_nerf_torch.train.engine import StepDraws, Trainer
+    cfg = flagship_train_config(fc_units=256, batch_size=64, n_samples=32)
+    draws = StepDraws(cfg.seed, len(table), cfg.batch_size, cfg.n_samples,
+                      device="cpu")
+    runs, grads = {}, {}
+    for dev in ("cpu", device):
+        src = (draws if dev == "cpu" else
+               lambda step: {k: v.to(device) for k, v in draws(step).items()})
+        tr = Trainer(cfg, table, prior_hm=prior_hm, device=dev, draws=src)
+        runs[str(dev)] = [{k: float(v) for k, v in tr.train_step().items()}]
+        if tr.statics.trunk_spec is None:
+            fail("the CPU-vs-card model did not take the fused trunk")
+        grads[str(dev)] = leaf_grads(tr)
+        runs[str(dev)] += [{k: float(v) for k, v in tr.train_step().items()}
+                           for _ in range(CPU_CARD_STEPS - 1)]
+    step0_grads = compare_grads(grads["cpu"], grads[str(device)])
+    cpu, card = runs["cpu"], runs[str(device)]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(cpu, card)):
+        if set(a) != set(b):
+            fail(f"CPU and card loss dicts differ in keys at step {i}")
+        for k in a:
+            err = abs(a[k] - b[k])
+            worst = max(worst, err / max(abs(a[k]), CPU_CARD_ATOL
+                                         / CPU_CARD_RTOL))
+            if not np.isfinite(b[k]) or err > CPU_CARD_ATOL + \
+                    CPU_CARD_RTOL * abs(a[k]):
+                fail(f"step {i} {k}: CPU {a[k]} against card {b[k]}")
+    log(f"  {CPU_CARD_STEPS} steps of a 256-wide bf16 model, CPU (plain "
+        f"versions) against the card (K1/K2): worst loss difference "
+        f"{worst:.3e} relative (tol {CPU_CARD_RTOL:g}); Total "
+        f"{[round(r['Total'], 4) for r in cpu]} against "
+        f"{[round(r['Total'], 4) for r in card]}")
+    return {"cpu": cpu, "card": card, "worst_rel": worst,
+            "step0_grads": step0_grads}
+
+
+def leaf_grads(tr) -> dict:
+    """Every leaf's gradient after a step: the network's parameters and the
+    adaptive-loss latents, as f32 on the CPU (None where a leaf got none)."""
+    leaves = dict(tr.model.named_parameters())
+    leaves.update({f"ada.{g}.{k}": t for g, lat in tr.ada_params.items()
+                   for k, t in lat.items()})
+    return {n: None if t.grad is None else t.grad.detach().float().cpu()
+            for n, t in leaves.items()}
+
+
+def grad_errors(cpu: dict, card: dict):
+    """-> (rel, noise, problems): each leaf's max abs difference over its own
+    max |gradient|; each BatchNorm-fed bias's larger max |gradient| over its
+    layer's largest weight gradient; what breaks CPU_CARD_GRAD_RTOL or
+    BN_BIAS_NOISE, or has a gradient on one side only, or is not finite."""
+    rel, noise, problems = {}, {}, []
+    for n, a in cpu.items():
+        b = card[n]
+        if (a is None) != (b is None):
+            problems.append(f"leaf {n} has a gradient on only one side")
+            continue
+        if a is None:
+            continue
+        if not torch.isfinite(b).all():
+            problems.append(f"the card's gradient of {n} is not finite")
+        elif n.endswith(".linear.bias") and \
+                n.replace(".linear.bias", ".norm.weight") in cpu:
+            w = float(cpu[n.replace(".bias", ".weight")].abs().max())
+            noise[n] = max(float(a.abs().max()), float(b.abs().max())) / w
+            if noise[n] > BN_BIAS_NOISE:
+                problems.append(
+                    f"{n} feeds a BatchNorm, so its gradient is zero but for "
+                    f"rounding; it is {noise[n]:.3e} of its layer's largest "
+                    f"weight gradient (tol {BN_BIAS_NOISE:g})")
+        else:
+            scale = float(a.abs().max())
+            err = float((a - b).abs().max())
+            rel[n] = err / scale if scale > 0 else err
+            if rel[n] > CPU_CARD_GRAD_RTOL:
+                problems.append(
+                    f"the gradient of {n} differs between the CPU and the "
+                    f"card by {err:.3e}, {rel[n]:.3e} of its max |value| "
+                    f"{scale:.3e} (tol {CPU_CARD_GRAD_RTOL:g})")
+    return rel, noise, problems
+
+
+def compare_grads(cpu: dict, card: dict) -> dict:
+    """Step 0's gradients, the CPU's (plain versions) against the card's
+    (K1/K2), both from the same weights and draws -> {"rel", "bn_bias_noise"}
+    of :func:`grad_errors`.  Fails on any problem, and unless the check
+    would catch the card's gradient of one leaf off by 5 %."""
+    rel, noise, problems = grad_errors(cpu, card)
+    if problems:
+        fail("step 0: " + "; ".join(problems))
+    for n, ref in (("G_NeRF_net.fc9.norm.bias",) * 2,
+                   ("G_NeRF_net.fc5.linear.bias",
+                    "G_NeRF_net.fc5.linear.weight")):
+        off = card[n] + 0.05 * cpu[ref].abs().max()
+        if not grad_errors(cpu, {**card, n: off})[2]:
+            fail(f"step 0: the gradient check misses a 5 % error in {n}")
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])
+    log(f"  step 0, CPU against card: {len(rel)} leaf gradients, worst "
+        f"relative {', '.join(f'{n} {v:.3e}' for n, v in worst[:3])} "
+        f"(tol {CPU_CARD_GRAD_RTOL:g}), median "
+        f"{float(np.median(list(rel.values()))):.3e}; {len(noise)} "
+        f"BatchNorm-fed biases, largest noise "
+        f"{max(noise.values(), default=0.0):.3e} (tol {BN_BIAS_NOISE:g})")
+    return {"rel": rel, "bn_bias_noise": noise}
 
 
 def main():
@@ -477,6 +944,7 @@ def main():
     import_port()
     from season_nerf_torch.config import Config
     from season_nerf_torch.ops import cuda_build, fused_trunk as ft
+    from season_nerf_torch.ops import fused_train as ftr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -488,13 +956,16 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
 
+    names = [ft.KERNEL, ftr.FWD_KERNEL, ftr.BWD_KERNEL]
     t0 = time.perf_counter()
-    cuda_build.build([ft.KERNEL])
-    log(f"built {ft.KERNEL} in {time.perf_counter() - t0:.1f} s")
-    ptxas = cuda_build.ptxas_report(ft.KERNEL)
-    for line in ptxas.splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling entry")):
-            log(f"  ptxas: {line.strip()}")
+    cuda_build.build(names)
+    log(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s")
+    ptxas = {n: cuda_build.ptxas_report(n) for n in names}
+    for n in names:
+        for line in ptxas[n].splitlines():
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry")):
+                log(f"  ptxas {n}: {line.strip()}")
 
     cfg = Config()
     model = make_model(cfg)
@@ -502,8 +973,17 @@ def main():
     trunk = check_trunk(model.to(device), device)
     check_trunk_small_widths(device)
 
+    log("K1 (trunk_train_fwd) and K2 (trunk_train_bwd) against "
+        "trunk_fwd_reference / trunk_bwd_reference:")
+    train_kernels = check_train_kernels(device)
+
     log("main path: HTTP serving at full width")
     serving = main_path(model.cpu(), cfg, device)
+    del model
+    torch.cuda.empty_cache()
+
+    log("main path: training the flagship config through K1 and K2")
+    training = train_path(device)
 
     flagship = trunk["trunk_infer[bfloat16,fast_sin]"][0]
     kernels = [{
@@ -520,11 +1000,30 @@ def main():
         "bound_by": flagship["bound_by"],
         "library_ms": None,
     }]
+    tk = train_kernels["flagship,bf16,fast_sin"]
+    for key, name, line, launches in (
+            ("k1", ftr.FWD_KERNEL, 238, training["k1_launches"]),
+            ("k2", ftr.BWD_KERNEL, 273, training["k2_launches"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"season_nerf_torch/csrc/{name}.cu",
+            "replaces": f"season_nerf_tpu/ops/pallas_train.py:{line}",
+            "launches": launches,
+            "max_abs_err": tk[f"{key}_max_abs_err"],
+            "ms": tk[f"{key}_ms"],
+            "plain_ms": tk[f"{key}_plain_ms"],
+            "bound_ms": tk[f"{key}_bound_ms"],
+            "bound_by": tk[f"{key}_bound_by"],
+            "library_ms": None,
+        })
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "ptxas": ptxas,
-                   "trunk": trunk, "serving": serving, "kernels": kernels,
+                   "trunk": trunk, "serving": serving,
+                   "train_kernels": train_kernels, "training": training,
+                   "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

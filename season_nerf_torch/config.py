@@ -4,12 +4,14 @@ Every field and default matches ``season_nerf_tpu/config.py`` so that an
 ``opts.json`` written by either package loads unchanged in the other.  The
 port reads the model-shape and render fields (``fc_units``, ``fc_layers``,
 ``number_low_frequency_cases``, ``compute_dtype``, ``fast_sine``,
-``n_samples``, ``chunk``, ``Solar_Type_2``, ``use_HSLuv``); the training
-fields are carried so that a model directory round-trips.
+``n_samples``, ``chunk``, ``Solar_Type_2``, ``use_HSLuv``) and the training
+fields of its trainer (``train/engine``); the rest are carried so that a
+model directory round-trips.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -120,3 +122,28 @@ class Config:
         for k, v in cls._LEGACY_DEFAULTS.items():
             kwargs.setdefault(k, v)
         return cls(**kwargs)
+
+
+def add_config_flags(parser: argparse.ArgumentParser,
+                     defaults: Optional[Config] = None):
+    """Register every Config field as a flag of the same name (booleans as
+    ``--X`` / ``--no-X``), as the JAX package's command line does."""
+    defaults = defaults or Config()
+    for f in dataclasses.fields(Config):
+        default = getattr(defaults, f.name)
+        flag = "--" + f.name
+        if isinstance(default, bool):
+            group = parser.add_mutually_exclusive_group()
+            group.add_argument(flag, dest=f.name, action="store_true",
+                               default=default)
+            group.add_argument("--no-" + f.name, dest=f.name,
+                               action="store_false")
+        elif f.name == "height_range":
+            parser.add_argument(flag, type=float, nargs=2, default=None,
+                                metavar=("MIN_M", "MAX_M"))
+        elif default is None:
+            typ = int if "int" in str(f.type) else str
+            parser.add_argument(flag, type=typ, default=None)
+        else:
+            parser.add_argument(flag, type=type(default), default=default)
+    return parser

@@ -1,11 +1,13 @@
-// K0: the degree-11 polynomial sine, a device function.
+// K0: the degree-11 polynomial sine and cosine, device functions.
 //
 // Replaces season_nerf_tpu/ops/fast_math.py::_poly_sin(_reduced(x)) (the
-// TPU kernels inline it).  One round-to-nearest reduction by 2*pi, then
-// y * P5(y^2) with the coefficients of season_nerf_torch/ops/fast_math.py.
-// The reduction is written with _rn intrinsics so that nvcc cannot contract
-// it into an FMA: it then rounds like the plain PyTorch version (for
-// |x| ~ 1e3 the unrounded product would move y by up to 3e-5).
+// TPU kernels inline it) and the cosine of pallas_train.py::_cos.  One
+// round-to-nearest reduction by 2*pi, then y * P5(y^2) with the
+// coefficients of season_nerf_torch/ops/fast_math.py; the cosine is the
+// sine a quarter period on.  The reduction is written with _rn intrinsics
+// so that nvcc cannot contract it into an FMA: it then rounds like the
+// plain PyTorch version (for |x| ~ 1e3 the unrounded product would move y
+// by up to 3e-5).
 #pragma once
 
 __device__ __forceinline__ float fast_sin(float x) {
@@ -21,4 +23,8 @@ __device__ __forceinline__ float fast_sin(float x) {
   p = fmaf(p, t, -0.1666662073313615f);
   p = fmaf(p, t, 0.9999999370777358f);
   return y * p;
+}
+
+__device__ __forceinline__ float fast_cos(float x) {
+  return fast_sin(__fadd_rn(x, 1.5707963267948966f));
 }

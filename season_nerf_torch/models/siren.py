@@ -1,16 +1,20 @@
-"""SIREN layers in eval mode: sin(BN(omega * (W x + b))).
+"""SIREN layers: sin(BN(omega * (W x + b))).
 
 The math and the cast points of ``season_nerf_tpu/models/siren.py``:
 
 - ``dtype`` is the matmul dtype.  Under bfloat16 the input, weight and bias
   are cast to bf16, the product and the bias add are bf16, and
   ``z = omega * (...)`` is stored in bf16;
-- BatchNorm (running statistics, eps 1e-5) and sin run in float32, in
-  flax's order: ``(z - mean) * (rsqrt(var + eps) * scale) + bias``;
+- BatchNorm (eps 1e-5) and sin run in float32, in flax's order:
+  ``(z - mean) * (rsqrt(var + eps) * scale) + bias``;
 - the activation is cast back to ``dtype``.
 
-Training mode (batch statistics, running-stat updates) is not ported yet:
-calling a layer in training mode raises.
+In training mode BatchNorm normalises with the batch statistics as flax
+computes them: the mean, and the *fast* variance ``max(0, E[z^2] -
+E[z]^2)``.  The running statistics are updated by hand with that biased
+variance and flax's momentum 0.99 (``running = 0.99 running + 0.01
+batch``); ``BatchNorm1d``'s own update, which uses the unbiased variance,
+never runs.  The sine's gradient is the cosine (``ops/fast_math``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 from season_nerf_torch.ops.fast_math import fast_sin
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.99      # flax's; torch's BatchNorm1d momentum 0.01
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -59,9 +64,9 @@ class Dense(nn.Linear):
 
 
 class SineLayer(nn.Module):
-    """sin(norm(omega_0 * (W x + b))), eval mode.  ``norm`` is a
-    ``BatchNorm1d`` (momentum 0.01, the reference's) when ``use_norm``,
-    used as the holder of its scale, shift and running statistics."""
+    """sin(norm(omega_0 * (W x + b))).  ``norm`` is a ``BatchNorm1d``
+    (momentum 0.01, the reference's) when ``use_norm``, used as the holder
+    of its scale, shift and running statistics; its forward never runs."""
 
     def __init__(self, in_features, out_features, use_norm=False,
                  omega_0=30.0, dtype=None, fast_sine=False):
@@ -78,13 +83,23 @@ class SineLayer(nn.Module):
         mul = torch.rsqrt(n.running_var.float() + BN_EPS) * n.weight.float()
         return (z - n.running_mean.float()) * mul + n.bias.float()
 
+    def bn_train(self, z: torch.Tensor) -> torch.Tensor:
+        """Batch statistics (flax's fast variance), and the running update
+        in place."""
+        n = self.norm
+        mean = z.mean(0)
+        var = torch.clamp(torch.mean(z * z, 0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = BN_MOMENTUM
+            n.running_mean.copy_(keep * n.running_mean + (1 - keep) * mean)
+            n.running_var.copy_(keep * n.running_var + (1 - keep) * var)
+        mul = torch.rsqrt(var + BN_EPS) * n.weight.float()
+        return (z - mean) * mul + n.bias.float()
+
     def forward(self, x, extra=None):
-        if self.training:
-            raise NotImplementedError(
-                "SineLayer is ported for inference only; call .eval()")
         z = self.omega_0 * self.linear(x, extra, self.dtype)
         z = z.float()
         if self.norm is not None:
-            z = self.bn_eval(z)
+            z = self.bn_train(z) if self.training else self.bn_eval(z)
         y = fast_sin(z) if self.fast_sine else torch.sin(z)
         return y.to(self.dtype) if self.dtype is not None else y

@@ -1,4 +1,4 @@
-"""The Season-NeRF network (T-NeRF) in PyTorch, eval mode.
+"""The Season-NeRF network (T-NeRF) in PyTorch.
 
 The architecture and forward modes of ``season_nerf_tpu/models/tnerf.py``,
 with the reference ``T_NeRF`` state-dict names (``G_NeRF_net.fc1``,
@@ -12,10 +12,13 @@ with the reference ``T_NeRF`` state-dict names (``G_NeRF_net.fc1``,
   time:    PE(t2; 2 -> 10) -> time_layer_1,2 -> get_class_layer (classes)
   adjust:  x_enc -> adjust_layer_1..3 -> adjust_col (classes x 3)
 
-At eval the trunk runs through the fused kernel (``ops/fused_trunk``),
-folded once per set of weights; every other branch is plain PyTorch.
-Under bfloat16 the trunk's float32 output is cast to bf16 before the heads,
-where flax's bf16 trunk emits bf16.
+The module's mode is the JAX package's ``train`` argument.  At eval the
+trunk runs through the fused inference kernel (``ops/fused_trunk``, K3),
+folded once per set of weights; under bfloat16 its float32 output is cast
+to bf16 before the heads, where flax's bf16 trunk emits bf16.  In training
+mode the trunk is plain PyTorch with full-batch BatchNorm (the JAX XLA
+path); the training step may instead run it through K1/K2 with ghost
+BatchNorm (``ops/fused_train``).  Every other branch is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -92,16 +95,26 @@ class GNeRF(nn.Module):
         return super()._load_from_state_dict(*args, **kwargs)
 
     def fused(self):
+        """The trunk folded for inference (K3): needs the running
+        statistics, so eval mode only."""
         from season_nerf_torch.ops.fused_trunk import FusedTrunk
+        if self.training:
+            raise RuntimeError("the folded inference trunk needs eval mode: "
+                               "training normalises with batch statistics")
         if self._fused is None:
             self._fused = FusedTrunk(self)
         return self._fused
 
     def encode_x(self, x: torch.Tensor) -> torch.Tensor:
-        """[N, 3] -> x_enc [N, width/2] in the compute dtype (fused trunk)."""
+        """[N, 3] -> x_enc [N, width/2] in the compute dtype: the fused
+        inference trunk at eval, the layers one by one in training mode."""
         if self.training:
-            raise NotImplementedError(
-                "the trunk is ported for inference only; call .eval()")
+            pe = positional_encode(x, self.pe_pose, self.extended)
+            h = pe
+            for i in range(1, self.n_layers + 1):
+                layer = getattr(self, f"fc{i}")
+                h = layer(h, extra=pe) if i == self.skip else layer(h)
+            return self.fc9(h)
         enc = self.fused().x_enc(x)
         return enc.to(self.dtype) if self.dtype is not None else enc
 
@@ -223,6 +236,17 @@ class TNeRF(nn.Module):
             "adjust_per_class": self.adjust_from_enc(x_enc),
         }
 
+    def forward_solar(self, x, sun_dir, sun_pe=None, sky_raw=None):
+        """The solar-correction forward: no gradient reaches the position
+        trunk (the reference runs it under no_grad); the trunk's running
+        statistics still update in training mode."""
+        g = self.G_NeRF_net
+        with torch.no_grad():
+            x_enc, rho_raw, _ = g.position(x)
+        vis_raw, sky_raw = g.solar(x_enc, sun_dir, sun_pe, sky_raw)
+        return {"rho": F.softplus(rho_raw), "vis": torch.sigmoid(vis_raw),
+                "sky_raw": sky_raw}
+
     def sigma_only(self, x):
         """Density only (exact-shadow secondary rays), in the compute dtype
         like the JAX package's."""
@@ -245,9 +269,30 @@ class TNeRF(nn.Module):
         return self
 
 
+def supervised_sigma(hm: torch.Tensor, world_pts: torch.Tensor,
+                     delta: torch.Tensor, eps: float = 0.99) -> torch.Tensor:
+    """DSM-prior density: occupancy below the prior height map as the sigma
+    that gives hit probability ``min(occupied, eps)`` over a step ``delta``.
+
+    hm: [H, W] in [-1, 1], NaN = no data (empty); world_pts: [N, 3];
+    delta: [N, 1].  A plain gather; NaN cells become the sentinel -4.0,
+    below any z in the cube, as in the JAX package."""
+    H, W = hm.shape
+    hm = hm.float()
+    hm = torch.where(torch.isnan(hm), torch.full_like(hm, -4.0), hm)
+    shape = torch.tensor([H - 1, W - 1], dtype=torch.float32,
+                         device=world_pts.device)
+    xy = ((world_pts[:, 0:2] + 1.0) / 2.0 * shape).to(torch.int64)
+    r = torch.clamp(xy[:, 0], 0, H - 1)
+    c = torch.clamp(xy[:, 1], 0, W - 1)
+    p_exist = (hm[r, c] >= world_pts[:, 2]).float()
+    p_exist = torch.clamp(p_exist, max=eps)
+    return -torch.log(1.0 - p_exist[:, None]) / delta
+
+
 def model_from_config(cfg) -> TNeRF:
     """The one place a Config becomes a network (width, depth, class count,
-    compute dtype, sine), in eval mode."""
+    compute dtype, sine), in eval mode (``.train()`` for training)."""
     dtype = (torch.bfloat16 if getattr(cfg, "compute_dtype", "float32")
              == "bfloat16" else None)
     return TNeRF(layer_width=cfg.fc_units, n_layers=cfg.fc_layers,

@@ -1,4 +1,4 @@
-"""The degree-11 polynomial sine and cosine (K0), plain PyTorch, for inference.
+"""The degree-11 polynomial sine and cosine (K0), plain PyTorch.
 
 One round-to-nearest reduction by 2*pi, then an odd polynomial:
 
@@ -8,8 +8,11 @@ One round-to-nearest reduction by 2*pi, then an odd polynomial:
 Max abs error against sin on [-pi, pi] is 1.9e-7; the reduction adds about
 |k| * 2.8e-7 for |x| ~ k * 2*pi.  The coefficients are those of
 ``season_nerf_tpu/ops/fast_math.py`` (degree 11, its default).  The same
-arithmetic runs inside the CUDA trunk kernel (``csrc/fast_sin.cuh``).
-No autograd: the gradient through cos comes with training.
+arithmetic runs inside the CUDA trunk kernels (``csrc/fast_sin.cuh``).
+
+As in the JAX package, the derivative of one is the other, not the autograd
+of the polynomial: d fast_sin = fast_cos, d fast_cos = -fast_sin
+(:class:`FastSin`, :class:`FastCos`).
 """
 
 from __future__ import annotations
@@ -43,11 +46,43 @@ def poly_sin(y: torch.Tensor) -> torch.Tensor:
     return y * p
 
 
+def _sin(x):
+    return poly_sin(reduce_two_pi(x))
+
+
+def _cos(x):
+    return poly_sin(reduce_two_pi(x + HALF_PI))
+
+
+class FastSin(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _sin(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return FastCos.apply(x) * g
+
+
+class FastCos(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _cos(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return -FastSin.apply(x) * g
+
+
 def fast_sin(x: torch.Tensor) -> torch.Tensor:
     """sin(x) to f32 accuracy for |x| up to ~1e3 (one-round reduction)."""
-    return poly_sin(reduce_two_pi(x))
+    return FastSin.apply(x)
 
 
 def fast_cos(x: torch.Tensor) -> torch.Tensor:
     """cos(x) as the same polynomial a quarter period on."""
-    return poly_sin(reduce_two_pi(x + HALF_PI))
+    return FastCos.apply(x)

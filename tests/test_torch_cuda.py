@@ -1,6 +1,7 @@
-"""K3 on the card: the CUDA trunk kernel against its plain version, the
-wrapper's checks and launch count, and a render on the card against the
-same render on the CPU.
+"""The kernels on the card: K3 (the inference trunk) and K1/K2 (the
+training trunk's forward and backward) against their plain versions, the
+wrappers' checks and launch counts, a render on the card against the same
+render on the CPU, and training steps on the card through K1/K2.
 
 Every test here needs a CUDA card and skips without one.  Run them on a
 machine with an H100, from the repository root:
@@ -14,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TOL, make_model   # the kernel tolerances, stated there
+# the kernel tolerances, stated there
+from chip_smoke import K1_REL_TOL, K2_REL_TOL, TOL, make_model, train_params
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.ingest import save_world_artifact
+from season_nerf_torch.ops import fused_train as ftr
 from season_nerf_torch.ops import fused_trunk as ft
 from season_nerf_torch.render.loading import load_model_dir
 from season_nerf_torch.train.state import save_model_artifact
@@ -118,3 +121,79 @@ def test_entry_points_default_to_the_card(cuda, tmp_path):
     assert loaded.renderer.device.type == "cuda"
     assert all(w.is_cuda for w in loaded.model.G_NeRF_net.fused()
                .folded.weights)
+
+
+TRAIN_SPECS = {"w32-tile64": (dict(widths=(32, 32, 32, 16), skip_idx=2,
+                                   pe_dim=16, tile=64), 64 * 5),
+               "w256-tile128": (dict(widths=(256,) * 8 + (128,), tile=128),
+                                128 * 3)}
+
+
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", list(TRAIN_SPECS))
+def test_train_kernels_match_plain_versions(cuda, name, dtype, fast_sine):
+    kw, n = TRAIN_SPECS[name]
+    spec = ftr.TrunkSpec(**kw, fast_sine=fast_sine, act_dtype=dtype,
+                         grad_dtype=dtype)
+    params = [p.to(cuda) for p in train_params(spec, 1)]
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    pe = (ftr.encode_pe(torch.rand(n, 3, generator=gen, device=cuda) * 2 - 1)
+          if spec.pe_dim == ftr.PE_PAD else
+          (torch.rand(n, spec.pe_dim, generator=gen, device=cuda) * 2 - 1)
+          .to(torch.bfloat16))
+    launches = (ftr.trunk_fwd.launches, ftr.trunk_bwd.launches)
+    got = ftr.trunk_fwd(spec, pe, params)
+    want = ftr.trunk_fwd_reference(spec, pe, params)
+    dt = ftr._DTYPES[dtype]
+    err = (got[0].float() - want[0].float()).abs()
+    assert float(err.max()) <= TOL[dt][0] and float(err.mean()) <= TOL[dt][1]
+    for k in (1, 2):
+        assert float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max()) <= K1_REL_TOL[dt]
+    d_x = 0.1 * torch.randn(n, spec.enc_width, generator=gen, device=cuda)
+    d_h = 0.1 * torch.randn(n, ftr.HEAD_PAD, generator=gen, device=cuda)
+    got = ftr.trunk_bwd(spec, pe, params, d_x, d_h)
+    want = ftr.trunk_bwd_reference(spec, pe, params, d_x.to(dt), d_h)
+    torch.cuda.synchronize()
+    assert (ftr.trunk_fwd.launches, ftr.trunk_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), k
+        assert float((a - b).abs().max() / b.abs().max().clamp_min(1.0)) \
+            <= K2_REL_TOL[dt], k
+
+
+def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    spec = ftr.TrunkSpec(widths=(32, 32, 32, 16), skip_idx=2, pe_dim=16,
+                         tile=64)
+    params = [p.to(cuda) for p in train_params(spec, 1)]
+    pe = torch.zeros(128, 16, dtype=torch.bfloat16, device=cuda)
+    for bad in (pe[:100], pe.float(), pe[:, :8]):
+        with pytest.raises(ValueError):
+            ftr.trunk_fwd(spec, bad, params)
+    with pytest.raises(ValueError):
+        ftr.trunk_fwd(spec, pe, [p.cpu() for p in params])
+    with pytest.raises(ValueError):
+        ftr.trunk_bwd(spec, pe, params, torch.zeros(64, 16, device=cuda),
+                      torch.zeros(128, 8, device=cuda))
+
+
+def test_trainer_steps_on_the_card_through_k1_and_k2(cuda):
+    """The Trainer defaults to the card; with pallas_trunk each step
+    launches K1 twice (camera and solar pass) and K2 once."""
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    from season_nerf_torch.train.engine import Trainer
+    scene = make_scene(n_views=3, img_size=24, grid=32, seed=1)
+    table, _ = scene_ray_tables(scene, testing_size=1)
+    cfg = Config(fc_units=256, batch_size=64, n_samples=32,
+                 max_train_steps=100, pallas_trunk=True)
+    tr = Trainer(cfg, table, prior_hm=scene.prior_hm)
+    assert tr.device.type == "cuda"
+    before = (ftr.trunk_fwd.launches, ftr.trunk_bwd.launches)
+    for _ in range(2):
+        loss = tr.train_step()
+        assert all(bool(torch.isfinite(v)) for v in loss.values())
+    assert tr.statics.trunk_spec is not None
+    assert (ftr.trunk_fwd.launches - before[0],
+            ftr.trunk_bwd.launches - before[1]) == (4, 2)

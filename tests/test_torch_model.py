@@ -156,10 +156,12 @@ def test_sigma_only_and_class_only(pair):
 
 
 def test_training_mode_is_refused(pair):
-    _, _, _, tm, (x, _, _), _ = pair
+    """The folded inference trunk (K3) is refused in training mode, where
+    BatchNorm normalises with batch statistics."""
+    _, _, _, tm, _, _ = pair
     tm.train()
     try:
-        with pytest.raises(NotImplementedError):
-            tm.sigma_only(_t(x))
+        with pytest.raises(RuntimeError, match="eval mode"):
+            tm.G_NeRF_net.fused()
     finally:
         tm.eval()

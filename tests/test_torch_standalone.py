@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``season_nerf_torch``, and not
 ``chip_smoke.py``, imports JAX, the JAX package, or a package the GPU
-machine lacks (msgpack, PIL, matplotlib).  Checked twice: statically over
-every source file, and by rendering on the CPU in a fresh interpreter in
-which importing any of them raises."""
+machine lacks (msgpack, PIL, matplotlib).  Checked statically over every
+source file, then on the CPU in a fresh interpreter in which importing any
+of them raises: by rendering, and by training two steps."""
 
 import ast
 import os
@@ -38,7 +38,7 @@ def test_no_banned_import_in_source(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-SCRIPT = textwrap.dedent("""
+BLOCK = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys, tempfile, os
     BANNED = set(sys.argv[2].split(","))
 
@@ -57,7 +57,9 @@ SCRIPT = textwrap.dedent("""
     for m in pkgutil.walk_packages(season_nerf_torch.__path__,
                                    "season_nerf_torch."):
         importlib.import_module(m.name)
+""")
 
+SCRIPT = BLOCK + textwrap.dedent("""
     from season_nerf_torch.config import Config
     from season_nerf_torch.data.ingest import save_world_artifact
     from season_nerf_torch.models.tnerf import model_from_config
@@ -91,10 +93,39 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_renders_with_jax_and_the_jax_package_blocked():
+TRAIN_SCRIPT = BLOCK + textwrap.dedent("""
+    from season_nerf_torch.config import Config
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    from season_nerf_torch.train.engine import Trainer
+
+    scene = make_scene(n_views=3, img_size=16, grid=16, seed=0)
+    train_table, _ = scene_ray_tables(scene, testing_size=1)
+    cfg = Config(fc_units=32, batch_size=16, n_samples=8,
+                 max_train_steps=10, compute_dtype="float32")
+    trainer = Trainer(cfg, train_table, prior_hm=scene.prior_hm,
+                      device="cpu")
+    for _ in range(2):
+        loss = trainer.train_step()
+        assert all(bool(torch.isfinite(v)) for v in loss.values()), loss
+    assert "Alpha_Adjust_ada" in loss
+    loaded = sorted(k for k in sys.modules if k.split(".")[0] in BANNED)
+    assert not loaded, loaded
+    print("TRAINED")
+""")
+
+
+def _run_blocked(script, word):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run(
-        [sys.executable, "-I", "-c", SCRIPT, str(ROOT), ",".join(BANNED)],
+        [sys.executable, "-I", "-c", script, str(ROOT), ",".join(BANNED)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert res.stdout.strip().endswith("RENDERED")
+    assert res.stdout.strip().endswith(word)
+
+
+def test_port_renders_with_jax_and_the_jax_package_blocked():
+    _run_blocked(SCRIPT, "RENDERED")
+
+
+def test_port_trains_with_jax_and_the_jax_package_blocked():
+    _run_blocked(TRAIN_SCRIPT, "TRAINED")
