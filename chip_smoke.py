@@ -18,8 +18,11 @@ Phases, each fatal on failure:
    - K1 and K2 at the flagship training shape (4096 rays x 96 samples,
      tile 2048, width 512, bf16, both sines), in f32 at a reduced row
      count, and at a 32-wide spec with tile 64 and a ragged tile count;
+   - the bf16 GEMM inside K1 and K2 (TMA + wgmma) alone at the flagship's
+     shapes (a 512 x 512 forward layer, the skip layer's PE half, an input
+     gradient, a weight gradient) against the f32 product;
    and time the flagship cases with CUDA events beside the kernel's bound
-   and its plain version;
+   and its plain version (the GEMMs beside ``torch.matmul``'s bf16 time);
 4. the serving main path: write a full-width model directory (``Config()``
    defaults, seeded random weights) with the port's own writer, load it
    onto the card, serve it over HTTP on an ephemeral localhost port and
@@ -477,6 +480,107 @@ def check_train_kernels(device) -> dict:
                     f"own HBM floor {rec[name + '_design_floor_ms']:.3f} ms")
         results[case] = rec
         del pe, params, d_xenc, d_heads
+        torch.cuda.empty_cache()
+    return results
+
+
+# --- the bf16 GEMM inside K1 and K2 -------------------------------------------
+# Against torch.matmul in f32 on the same bf16 operands: the products are
+# exact in f32 on both sides and only the order of the f32 sums differs.
+# Each element's error is held against sum_k |a_mk| |b_kn| (+ |c| + |bias|)
+# there, at most 1e-4.  Rounding gives about sqrt(L) x 2^-24 of it for a
+# chain of L sums (under 1e-5 for the 23,168-row splits of the flagship's
+# weight gradient); a transposed or wrongly swizzled read gives errors of
+# order 1, and one 64-deep K step missed or read twice 64 / K (1.6e-4 at
+# the flagship's 393,216 rows).
+GEMM_REL_TOL = 1e-4
+# the GEMMs of a flagship training step (393,216 points, width 512):
+# (name, layout, M, N, K, bias, accumulate, split)
+GEMM_CASES = (
+    ("forward 512x512", "fwd", TRAIN_N, 512, 512, True, False, False),
+    ("skip layer, PE half", "fwd", TRAIN_N, 512, 64, True, True, False),
+    ("input gradient", "dgrad", TRAIN_N, 512, 512, False, False, False),
+    ("weight gradient", "wgrad", 512, 512, TRAIN_N, False, False, True),
+)
+
+
+def gemm_case(layout, m, n, k, device, seed):
+    """Stored bf16 operands of an M x N x K product in ``layout`` (see
+    ``fused_train.GEMM_LAYOUTS``), uniform in [-0.5, 1): not symmetric about
+    0, so that the sums do not cancel and a misread tile shows; then an f32
+    bias [N] and an f32 C [M, N] drawn the same way."""
+    from season_nerf_torch.ops import fused_train as ftr
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = lambda *shape: (torch.rand(*shape, generator=gen, device=device)
+                        * 1.5 - 0.5)
+    A, B = u(m, k).to(torch.bfloat16), u(k, n).to(torch.bfloat16)
+    a_kc, b_kc = ftr.GEMM_LAYOUTS[layout]
+    a = A if a_kc else A.t().contiguous()
+    b = B.t().contiguous() if b_kc else B
+    return a, b, u(n), u(m, n)
+
+
+def gemm_rel_err(got, a, b, layout, bias=None, c=None) -> float:
+    """max over elements of |got - the f32 product| / (|A| . |B| + |c| +
+    |bias|), the f32 product from ``fused_train.gemm_reference``."""
+    from season_nerf_torch.ops import fused_train as ftr
+    A, B = ftr.gemm_operands(a, b, layout)
+    want = ftr.gemm_reference(a, b, layout, bias, c)
+    scale = A.float().abs() @ B.float().abs()
+    if c is not None:
+        scale += c.abs()
+    if bias is not None:
+        scale += bias.abs()
+    return float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+
+
+def check_gemms(device) -> dict:
+    """The bf16 GEMM of K1 and K2 (TMA + wgmma) alone at the flagship
+    training shapes: its error against the f32 product, its time (CUDA
+    events, 10 calls), TFLOP/s, its own bound (operations against bytes:
+    each operand read once, the f32 C written once and, when it
+    accumulates, read once) and, as a yardstick only, ``torch.matmul`` on
+    the same bf16 operands (cuBLAS; it writes bf16, half the output bytes,
+    and the port never calls it)."""
+    from season_nerf_torch.ops import fused_train as ftr
+    results = {}
+    for i, (name, layout, m, n, k, bias, acc, split) in enumerate(GEMM_CASES):
+        a, b, bias_t, c = gemm_case(layout, m, n, k, device, SEED + 20 + i)
+        bias_t = bias_t if bias else None
+        c = c if acc else None
+        run = lambda out=None: ftr.gemm_bf16(a, b, layout, bias=bias_t,
+                                              c=out, split=split)
+        got = run(None if c is None else c.clone())
+        torch.cuda.synchronize()
+        err = gemm_rel_err(got, a, b, layout, bias_t, c)
+        finite = bool(torch.isfinite(got).all())
+        del got
+        target = None if c is None else c.clone()
+        ms = cuda_ms(lambda: run(target), 10)
+        A, B = ftr.gemm_operands(a, b, layout)
+        library_ms = cuda_ms(lambda: torch.matmul(A, B), 10)
+        flops = 2.0 * m * n * k
+        nbytes = (a.numel() + b.numel()) * 2 + m * n * 4 * (2 if acc else 1) \
+            + (n * 4 if bias else 0)
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        rec = {"layout": layout, "m": m, "n": n, "k": k, "bias": bias,
+               "accumulate": acc, "split": split, "rel_err": err,
+               "tol": GEMM_REL_TOL, "ms": ms, "tflops": flops / ms / 1e9,
+               "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "cublas_bf16_ms": library_ms}
+        rec["share_of_bound"] = rec["bound_ms"] / ms
+        log(f"  GEMM {name} ({layout}, {m} x {n} x {k}): error "
+            f"{err:.3e} (tol {GEMM_REL_TOL:g}), {ms:.4f} ms, "
+            f"{rec['tflops']:.1f} TFLOP/s, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {100 * rec['share_of_bound']:.1f} % of "
+            f"it), torch.matmul bf16 {library_ms:.4f} ms")
+        results[name] = rec
+        if not finite or err > GEMM_REL_TOL:
+            fail(f"GEMM {name} disagrees with the f32 product: {rec}")
+        del a, b, A, B, c, target, bias_t
         torch.cuda.empty_cache()
     return results
 
@@ -976,6 +1080,8 @@ def main():
     log("K1 (trunk_train_fwd) and K2 (trunk_train_bwd) against "
         "trunk_fwd_reference / trunk_bwd_reference:")
     train_kernels = check_train_kernels(device)
+    log("the bf16 GEMM of K1 and K2 (TMA + wgmma) against the f32 product:")
+    gemms = check_gemms(device)
 
     log("main path: HTTP serving at full width")
     serving = main_path(model.cpu(), cfg, device)
@@ -1022,7 +1128,8 @@ def main():
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "ptxas": ptxas,
                    "trunk": trunk, "serving": serving,
-                   "train_kernels": train_kernels, "training": training,
+                   "train_kernels": train_kernels, "gemms": gemms,
+                   "training": training,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -18,9 +18,13 @@
 //
 // Bound (H100 SXM): compute.  The recompute, dW and da are three times
 // K1's 1.60 TFLOP at the flagship's 393,216 points: about 4.9 ms at 989
-// TFLOP/s bf16.  The design keeps every layer's input and f32 zh in device
-// memory (about 10 GB at the flagship) and moves each layer's f32 da and
-// zh several times; keeping a tile on chip is later work.
+// TFLOP/s bf16.  Of its GEMMs (gemm_wgmma, TMA + wgmma), the recompute's and
+// the input gradients' are bound by their f32 outputs (z, da); the weight
+// gradients, split-K over the batch, read two bf16 operands of the batch's
+// size for 1 MB of output and are nearly balanced.  The design keeps
+// every layer's input and f32 zh in device memory (about 10 GB at the
+// flagship) and moves each layer's f32 da and zh several times; the z round
+// trips and the BN passes remain, and keeping a tile on chip is later work.
 
 #include "trunk_train_common.cuh"
 

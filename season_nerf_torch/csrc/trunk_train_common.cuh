@@ -6,9 +6,10 @@
 // has 227 KB, and the ghost statistics need every row of the tile's z
 // before any row can be normalised.  So the Hopper version runs the trunk
 // one layer at a time over the whole batch:
-//   1. a GEMM writes z = h . W + b in f32 to scratch (gemm_mma: mma.sync
-//      bf16 -> f32 when both operands are bf16; gemm_f32: FFMA otherwise);
-//      the skip layer is two GEMMs into the same z, [h | PE] never built;
+//   1. a GEMM writes z = h . W + b in f32 to scratch (gemm_wgmma: TMA and
+//      wgmma bf16 -> f32 when both operands are bf16; gemm_f32: FFMA
+//      otherwise); the skip layer is two GEMMs into the same z, [h | PE]
+//      never built;
 //   2. bn_sine_fwd, one CTA per (tile, 32 columns): the tile's mean, then
 //      the two-pass biased variance mean((z - mu)^2) as _fwd_tile does,
 //      per-tile statistics to scratch, and sin(gamma * zh + beta) cast to
@@ -16,9 +17,22 @@
 // Sums over tiles go through per-tile scratch and a fixed-order reduction
 // (sum_tiles), so every result is deterministic.  A reduction over the
 // batch (dW) is split-K with an f32 workspace and a fixed-order reduce.
-// wgmma, TMA and clusters that keep a tile on chip are later work.
+//
+// What bounds the GEMMs (H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s).  A
+// forward layer at width 512 over 393,216 rows does 0.21 ms of operations
+// and moves 0.36 ms of bytes, most of them its f32 z (805 MB): it is bound
+// by its bytes, and so is an input gradient (f32 da, the same shape).  A
+// weight gradient (512 x 512 over the 393,216 rows) reads two 402 MB
+// operands and writes 1 MB: 0.24 ms of bytes against 0.21 ms of operations,
+// nearly balanced.  gemm_wgmma keeps the tensor cores fed
+// from a ring of TMA loads in flight, so that the operations hide under the
+// bytes, and runs two CTAs an SM, so that one tile's f32 store overlaps the
+// other's main loop.  What it leaves: the z round trips (each layer's f32 z
+// to HBM and back for the tile statistics) and the BN passes, which only a
+// design that keeps a tile on chip removes.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,99 +117,309 @@ __device__ __forceinline__ void gemm_store(const Gemm& p, int r, int c,
   *o = v;
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16 x bf16 -> f32 on the tensor cores: 128 x 128 tile per CTA, 8 warps
-// of 64 x 32, K steps of 32 through shared memory ([m][k] and [n][k], so
-// that both mma fragments are 32-bit loads).  Out-of-range rows, columns
-// and K are zero-filled.
-template <bool A_KC, bool B_KC>
-__global__ void __launch_bounds__(256) gemm_mma(const Gemm p) {
-  constexpr int BM = 128, BN = 128, BK = 32, LDS = BK + 8;
-  __shared__ __align__(16) bf16 sA[BM * LDS];
-  __shared__ __align__(16) bf16 sB[BN * LDS];
-  const bf16* A = static_cast<const bf16*>(p.A);
-  const bf16* B = static_cast<const bf16*>(p.B);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int kb = blockIdx.z * p.k_chunk;
-  const int ke = min(p.K, kb + p.k_chunk);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const bf16 zero = __float2bfloat16(0.f);
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = kb; k0 < ke; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += 256) {
-      const int r = A_KC ? i / BK : i % BM;
-      const int c = A_KC ? i % BK : i / BM;
-      const int gm = m0 + r, gk = k0 + c;
-      bf16 v = zero;
-      if (gm < p.M && gk < ke)
-        v = A_KC ? A[(size_t)gm * p.lda + gk] : A[(size_t)gk * p.lda + gm];
-      sA[r * LDS + c] = v;
-    }
-    for (int i = tid; i < BN * BK; i += 256) {
-      const int n = B_KC ? i / BK : i % BN;
-      const int c = B_KC ? i % BK : i / BN;
-      const int gn = n0 + n, gk = k0 + c;
-      bf16 v = zero;
-      if (gn < p.N && gk < ke)
-        v = B_KC ? B[(size_t)gn * p.ldb + gk] : B[(size_t)gk * p.ldb + gn];
-      sB[n * LDS + c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* s = sA + (wm + mt * 16 + g) * LDS + kk + 2 * t;
-        a[mt][0] = lds32(s);
-        a[mt][1] = lds32(s + 8 * LDS);
-        a[mt][2] = lds32(s + 8);
-        a[mt][3] = lds32(s + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* s = sB + (wn + nt * 8 + g) * LDS + kk + 2 * t;
-        const uint32_t b0 = lds32(s), b1 = lds32(s + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    __syncthreads();
+// Two adjacent columns (c, c + 1) of one row of gemm_wgmma's output,
+// already C_old + A.B + bias: one 8-byte store where both lie in range and
+// the address allows it.
+__device__ __forceinline__ void gemm_store2(const Gemm& p, int r, int c,
+                                            float v0, float v1) {
+  if (r >= p.M || c >= p.N) return;
+  const bool two = c + 1 < p.N;
+  float* o = p.ws ? p.ws + ((size_t)blockIdx.z * p.M + r) * p.N + c
+                  : p.C + (size_t)r * p.ldc + c;
+  if (two && !(reinterpret_cast<uintptr_t>(o) & 7)) {
+    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+  } else {
+    o[0] = v0;
+    if (two) o[1] = v1;
   }
+}
 
+// --- bf16 x bf16 -> f32 on the tensor cores: TMA + wgmma --------------------
+// One CTA per 128 x 128 output tile (blockIdx.x = tile, N tiles fastest, so
+// that the CTAs in flight together share A's rows through L2; blockIdx.z =
+// split of K), 288 threads:
+//   warps 0-7, two consumer warpgroups, 64 rows x 128 columns each:
+//     wgmma.m64n128k16 from shared memory into f32 registers;
+//   warp 8, the producer: one thread issues the TMA loads.
+// A ring of kStages stages of BK = 64 (A 16 KB + B 16 KB), each with a full
+// and an empty mbarrier; TMA writes them with the 128-byte swizzle that the
+// wgmma descriptors name.  Each operand keeps its layout in device memory
+// and the wgmma transpose bit reads it as it lies:
+//   K-major ([rows][K]: A of the forward and the input gradient, B = W of
+//     the input gradient): one box of 64 K x 128 rows, 128-byte rows;
+//   MN-major ([K][rows]: W of the forward, both operands of the weight
+//     gradient): two boxes of 64 rows x 64 K, 64 K-rows of 128 bytes each.
+// TMA fills what lies past M, N or K with zeros, so only the store masks.
+// No setmaxnreg: ptxas gives the kernel 96 registers a thread with no
+// spills (64 of them the accumulators), under the 112 that two CTAs an SM
+// allow, and a consumer's setmaxnreg.inc above that would wait for ever on
+// registers that the one producer warp cannot free (it hung on the card).
+constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3;
+constexpr int kOpBytes = 128 * kBK * 2;        // one operand of one stage
+constexpr int kStageBytes = 2 * kOpBytes;
+constexpr int kGemmThreads = 288;
+constexpr int kGemmSmem = kStages * kStageBytes + 1024;   // + 1 KB to align
+// polls of an mbarrier before a wait counts as hung (seconds; a poll may
+// sleep for a while): a wrong phase then traps, a launch error, instead of
+// hanging the card
+constexpr long long kSpinLimit = 1LL << 26;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of `bar` with parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > kSpinLimit) __trap();
+  }
+}
+
+// a 2-D box at element (c0 inner, c1 outer) into shared memory at `dst`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset (K-major: unused; MN-major: between 64-wide row blocks) and
+// stride byte offset (between groups of 8 rows or 8 K), all >> 4
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128]; TA / TB: the operand is MN-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm + mt * 16 + g + 8 * half;
-        const int c = n0 + wn + nt * 8 + 2 * t;
-        gemm_store(p, r, c, acc[mt][nt][2 * half]);
-        gemm_store(p, r, c + 1, acc[mt][nt][2 * half + 1]);
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <bool A_KC, bool B_KC>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b, const Gemm p) {
+  extern __shared__ uint8_t gemm_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];   // full, then empty
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_tiles = (p.N + kBN - 1) / kBN;
+  const int m0 = (int)(blockIdx.x / n_tiles) * kBM;
+  const int n0 = (int)(blockIdx.x % n_tiles) * kBN;
+  const int kb = blockIdx.z * p.k_chunk;
+  const int nk = (min(p.K, kb + p.k_chunk) - kb + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    if (lane == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kStages;
+        mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t sa = base + s * kStageBytes, sb = sa + kOpBytes;
+        const int k0 = kb + i * kBK;
+        mbar_expect_tx(full, kStageBytes);
+        if (A_KC) {
+          tma_load(sa, &map_a, full, k0, m0);
+        } else {
+          tma_load(sa, &map_a, full, m0, k0);
+          tma_load(sa + kOpBytes / 2, &map_a, full, m0 + 64, k0);
+        }
+        if (B_KC) {
+          tma_load(sb, &map_b, full, k0, n0);
+        } else {
+          tma_load(sb, &map_b, full, n0, k0);
+          tma_load(sb + kOpBytes / 2, &map_b, full, n0 + 64, k0);
+        }
       }
+    }
+  } else {
+    const int wg = warp >> 2;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % kStages;
+      mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+      // this warpgroup's 64 rows of A: rows wg*64.. (K-major) or the wg-th
+      // 64-row box (MN-major), 8 KB in either case
+      const uint32_t sa = base + s * kStageBytes + wg * (kOpBytes / 2);
+      const uint32_t sb = base + s * kStageBytes + kOpBytes;
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // a step of 16 K: 32 bytes along a K-major row, 16 rows of 128
+        // bytes down an MN-major box
+        const uint64_t da = A_KC ? wgmma_desc(sa + kk * 32, 16, 1024)
+                                 : wgmma_desc(sa + kk * 2048, 8192, 1024);
+        const uint64_t db = B_KC ? wgmma_desc(sb + kk * 32, 16, 1024)
+                                 : wgmma_desc(sb + kk * 2048, 8192, 1024);
+        wgmma_m64n128<A_KC ? 0 : 1, B_KC ? 0 : 1>(acc, da, db);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the previous stage's products are done: free its buffers
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc(acc);
+      if (i > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % kStages));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    // accumulator i of 64: row (lane / 4) + 8 ((i / 2) % 2) of the warp's
+    // 16, column 8 (i / 4) + 2 (lane % 4) + i % 2
+    const int r = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+    const int c = n0 + 2 * (lane & 3);
+    if (!p.ws && (p.accumulate || p.bias)) {
+      // gemm_store's C_old + v + bias, every load before the first store, so
+      // that the loads overlap instead of each waiting behind a store
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int rr = r + 8 * ((i >> 1) & 1), cc = c + 8 * (i >> 2) + (i & 1);
+        if (rr < p.M && cc < p.N) {
+          if (p.accumulate) acc[i] = p.C[(size_t)rr * p.ldc + cc] + acc[i];
+          if (p.bias) acc[i] = acc[i] + p.bias[cc];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      gemm_store2(p, r, c + 8 * j, acc[4 * j], acc[4 * j + 1]);
+      gemm_store2(p, r + 8, c + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda); the pointer is the same in K1's and K2's library,
+// so sharing this static between them is harmless
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
+                                                  &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(f);
+  }
+  return fn;
+}
+
+// A bf16 matrix of `outer` rows of `inner` elements, `ld` apart, as a 2-D
+// tensor map with a box of 64 inner x box_outer and the 128-byte swizzle.
+// TMA wants a 16-byte-aligned base and row stride: ld a multiple of 8.
+inline bool bf16_map(CUtensorMap* map, const void* ptr, long long inner,
+                     long long outer, long long ld, int box_outer) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn || (reinterpret_cast<uintptr_t>(ptr) & 15) || ld % 8 ||
+      inner > ld)
+    return false;
+  const cuuint64_t dim[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t stride[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
+  const cuuint32_t estride[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dim, stride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The shared-memory limit is set on every launch, not once behind a
+// function-local static: such a static is one symbol for the whole process,
+// so K2's library would skip setting it on its own copy of the kernel once
+// K1's had.
+template <bool A_KC, bool B_KC>
+cudaError_t launch_gemm_wgmma(const CUtensorMap& ma, const CUtensorMap& mb,
+                              const Gemm& p, dim3 grid, cudaStream_t s) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      (const void*)gemm_wgmma<A_KC, B_KC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (attr != cudaSuccess) return attr;
+  gemm_wgmma<A_KC, B_KC><<<grid, kGemmThreads, kGemmSmem, s>>>(ma, mb, p);
+  return cudaGetLastError();
 }
 
 // Any operand types, f32 FFMA: 64 x 64 tile per CTA, 4 x 4 outputs per
@@ -295,24 +519,29 @@ void launch_gemm_f32(const Gemm& p, int a_bf16, int b_bf16, dim3 grid,
 
 // The one GEMM entry.  Layouts used: (A_KC, !B_KC) forward, (A_KC, B_KC)
 // the input gradient h . W^T, (!A_KC, !B_KC) the weight gradient A^T . B.
-// `split`: split K over CTAs (a reduction over the batch) through `ws`.
+// bf16 x bf16 goes to gemm_wgmma (lda and ldb multiples of 8, 16-byte
+// aligned operands, or cudaErrorInvalidValue), any other pair to gemm_f32.
+// `split`: split K over CTAs (a reduction over the batch) through `ws`;
+// the split depends on the shape alone, so equal calls give equal bits.
 inline cudaError_t gemm(const void* A, int a_bf16, bool a_kc, long long lda,
                         const void* B, int b_bf16, bool b_kc, long long ldb,
                         float* C, long long ldc, const float* bias, int M,
                         int N, int K, int accumulate, bool split, float* ws,
                         long long ws_floats, cudaStream_t s) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  if (!a_kc && b_kc) return cudaErrorInvalidValue;
   const bool mma = a_bf16 && b_bf16;
-  const int BM = mma ? 128 : 64, BN = mma ? 128 : 64, BK = mma ? 32 : 16;
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
+  const int BM = mma ? kBM : 64, BN = mma ? kBN : 64, BK = mma ? kBK : 16;
+  const long long m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
   Gemm p;
   p.A = A; p.lda = lda; p.B = B; p.ldb = ldb; p.C = C; p.ldc = ldc;
   p.bias = bias; p.M = M; p.N = N; p.K = K; p.accumulate = accumulate;
   p.k_chunk = K; p.ws = nullptr;
   int splits = 1;
   if (split && ws) {
-    const long long tiles = (long long)grid.x * grid.y;
-    long long want = (4LL * kSms + tiles - 1) / tiles;
+    // enough CTAs for every SM: gemm_wgmma runs two an SM, gemm_f32 four
+    const long long tiles = m_tiles * n_tiles;
+    long long want = ((mma ? 2LL : 4LL) * kSms + tiles - 1) / tiles;
     want = want < 1 ? 1 : (want > kMaxSplits ? kMaxSplits : want);
     const long long kblocks = (K + BK - 1) / BK;
     if (want > kblocks) want = kblocks;
@@ -321,20 +550,27 @@ inline cudaError_t gemm(const void* A, int a_bf16, bool a_kc, long long lda,
     p.k_chunk = (int)chunk;
     splits = (int)((K + chunk - 1) / chunk);
   }
-  grid.z = splits;
   if (splits > 1) p.ws = ws;
+  cudaError_t err;
   if (mma) {
-    if (a_kc && !b_kc) gemm_mma<true, false><<<grid, 256, 0, s>>>(p);
-    else if (a_kc && b_kc) gemm_mma<true, true><<<grid, 256, 0, s>>>(p);
-    else if (!a_kc && !b_kc) gemm_mma<false, false><<<grid, 256, 0, s>>>(p);
-    else return cudaErrorInvalidValue;
+    // A: [M][K] (K-major) or [K][M]; B: [N][K] (K-major) or [K][N]
+    CUtensorMap ma, mb;
+    if (!(a_kc ? bf16_map(&ma, A, K, M, lda, kBM)
+               : bf16_map(&ma, A, M, K, lda, kBK)) ||
+        !(b_kc ? bf16_map(&mb, B, K, N, ldb, kBN)
+               : bf16_map(&mb, B, N, K, ldb, kBK)))
+      return cudaErrorInvalidValue;
+    const dim3 grid((unsigned)(m_tiles * n_tiles), 1, splits);
+    if (a_kc && !b_kc) err = launch_gemm_wgmma<true, false>(ma, mb, p, grid, s);
+    else if (a_kc) err = launch_gemm_wgmma<true, true>(ma, mb, p, grid, s);
+    else err = launch_gemm_wgmma<false, false>(ma, mb, p, grid, s);
   } else {
+    const dim3 grid((unsigned)m_tiles, (unsigned)n_tiles, splits);
     if (a_kc && !b_kc) launch_gemm_f32<true, false>(p, a_bf16, b_bf16, grid, s);
-    else if (a_kc && b_kc) launch_gemm_f32<true, true>(p, a_bf16, b_bf16, grid, s);
-    else if (!a_kc && !b_kc) launch_gemm_f32<false, false>(p, a_bf16, b_bf16, grid, s);
-    else return cudaErrorInvalidValue;
+    else if (a_kc) launch_gemm_f32<true, true>(p, a_bf16, b_bf16, grid, s);
+    else launch_gemm_f32<false, false>(p, a_bf16, b_bf16, grid, s);
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (splits > 1) {
     const long long mn = (long long)M * N;

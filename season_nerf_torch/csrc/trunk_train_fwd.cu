@@ -13,8 +13,12 @@
 // ms at 989 TFLOP/s bf16, against 0.08 ms for its own HBM bytes (PE 50 MB,
 // x_enc 201 MB, heads 13 MB).  The layer-major design sets its own floor:
 // each layer's f32 z goes to HBM and back (about 2.4 GB a layer with the
-// activations, about 6.5 ms a pass at 3.35 TB/s).  A design that keeps a
-// tile on chip (a CTA cluster sharing the tile's statistics) removes it.
+// activations, about 6.5 ms a pass at 3.35 TB/s).  So each layer's GEMM is
+// bound by its bytes, the f32 z write (0.36 ms against 0.21 ms of
+// operations at width 512); gemm_wgmma (TMA + wgmma, trunk_train_common.cuh)
+// keeps its operations under those bytes.  The z round trips and the BN
+// passes remain: a design that keeps a tile on chip (a CTA cluster sharing
+// the tile's statistics) removes them.
 //
 // Design: trunk_train_common.cuh (one GEMM and one BN-sine kernel per
 // layer, f32 z in scratch, deterministic sums).
@@ -74,6 +78,21 @@ int trunk_train_fwd_launch(const long long* layers, int n_layers,
     ++k;
   }
   return (int)cudaGetLastError();
+}
+
+// The bf16 GEMM of K1 and K2 alone, for tests and measurements (the main
+// path runs it inside trunk_train_fwd_launch and trunk_train_bwd_launch):
+// C[M, N] (+)= A . B (+ bias), A(m, k) = a_kc ? A[m lda + k] : A[k lda + m],
+// B(k, n) = b_kc ? B[n ldb + k] : B[k ldb + n], both bf16, C f32; `split`
+// splits K through ws (ws_floats long).  Returns 0 or a cudaError_t.
+int trunk_train_gemm_launch(const void* A, int a_kc, long long lda,
+                            const void* B, int b_kc, long long ldb, float* C,
+                            long long ldc, const float* bias, int M, int N,
+                            int K, int accumulate, int split, float* ws,
+                            long long ws_floats, void* stream) {
+  return (int)gemm(A, 1, a_kc != 0, lda, B, 1, b_kc != 0, ldb, C, ldc, bias,
+                   M, N, K, accumulate, split != 0, ws, ws_floats,
+                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -20,7 +20,10 @@ gradient of every packed parameter.  Each wrapper runs its plain version
 tensor, launches its kernel for a CUDA tensor or raises, and counts its
 launches in ``.launches``.  :class:`TrunkTrain` joins the two as an
 autograd function; :func:`fused_forward` and :func:`fused_forward_solar`
-are the network forwards the training step calls with a spec.
+are the network forwards the training step calls with a spec.  The bf16
+GEMM inside both (TMA + ``wgmma``) is bound alone as :func:`gemm_bf16`, for
+tests and measurements; on the card it needs every width and ``pe_dim`` to
+be a multiple of 8 (:func:`check_card_widths`).
 """
 
 from __future__ import annotations
@@ -268,10 +271,22 @@ def trunk_bwd_reference(spec: TrunkSpec, pe: torch.Tensor,
 
 
 # --- the kernels' wrappers --------------------------------------------------
+def check_card_widths(spec: TrunkSpec, name: str):
+    """The kernels' GEMM loads its bf16 operands with TMA, which wants
+    16-byte row strides: on the card every width and ``pe_dim`` is a
+    multiple of 8 (the plain versions take any)."""
+    bad = [w for w in spec.widths + (spec.pe_dim,) if w % 8]
+    if bad:
+        raise ValueError(f"{name}: widths {spec.widths} and pe_dim "
+                         f"{spec.pe_dim} must be multiples of 8 on the card "
+                         f"(got {bad})")
+
+
 def _check(spec: TrunkSpec, pe: torch.Tensor, params, name: str):
     if pe.device.type != "cuda":
         raise ValueError(f"{name} takes a cpu or cuda tensor, got "
                          f"{pe.device}")
+    check_card_widths(spec, name)
     n = pe.shape[0] if pe.dim() == 2 else -1
     if pe.dtype != torch.bfloat16 or pe.dim() != 2 \
             or pe.shape[1] != spec.pe_dim or not pe.is_contiguous():
@@ -327,12 +342,15 @@ def _library(name: str):
     lib = cuda_build.load(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == FWD_KERNEL:
             fn.argtypes = [P, I, P, I, I, I, P, P, I, P, P, I, I, I, P]
+            lib.trunk_train_gemm_launch.argtypes = [
+                P, I, L, P, I, L, P, L, P, I, I, I, I, I, P, L, P]
+            lib.trunk_train_gemm_launch.restype = I
         else:
             fn.argtypes = [P, I, P, I, I, I, P, I, P, P, P, P, I, I, I,
-                           P, P, P, P, I, P, ctypes.c_longlong, P]
+                           P, P, P, P, I, P, L, P]
         fn.restype = I
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [I], ctypes.c_char_p
@@ -449,6 +467,96 @@ def trunk_bwd(spec: TrunkSpec, pe: torch.Tensor,
 
 
 trunk_bwd.launches = 0
+
+
+# --- the GEMM of K1 and K2, alone ------------------------------------------
+# layout -> (A is K-major, B is K-major), as the kernels call it: the
+# forward z = h . W (W [K, N]), the input gradient da = dz . W^T (W [N, K])
+# and the weight gradient dW = h^T . dz over the rows
+GEMM_LAYOUTS = {"fwd": (True, False), "dgrad": (True, True),
+                "wgrad": (False, False)}
+
+
+def gemm_operands(a: torch.Tensor, b: torch.Tensor, layout: str):
+    """(A [M, K], B [K, N]) views of the stored operands of ``layout``."""
+    a_kc, b_kc = GEMM_LAYOUTS[layout]
+    return (a if a_kc else a.t()), (b.t() if b_kc else b)
+
+
+def gemm_reference(a, b, layout, bias=None, c=None):
+    """The plain version of :func:`gemm_bf16`, into a new tensor: the f32
+    product of the bf16 operands (exact products, f32 sums), ``c +`` it,
+    then ``+ bias``."""
+    A, B = gemm_operands(a, b, layout)
+    out = _mm(A, B)
+    if c is not None:
+        out = c.float() + out
+    if bias is not None:
+        out = out + bias.float()
+    return out
+
+
+def gemm_bf16(a: torch.Tensor, b: torch.Tensor, layout: str,
+              bias: Optional[torch.Tensor] = None,
+              c: Optional[torch.Tensor] = None,
+              split: bool = False) -> torch.Tensor:
+    """The bf16 GEMM that K1 and K2 run inside (TMA + wgmma), alone, for
+    tests and measurements: f32 ``(c +) A . B (+ bias)`` for bf16 operands
+    stored as ``layout`` says ("fwd": a [M, K], b [K, N]; "dgrad": a [M, K],
+    b [N, K]; "wgrad": a [K, M], b [K, N]) and ``bias`` f32 [N].  With
+    ``c`` (f32 [M, N]) the result goes into ``c`` in place, as the skip
+    layer's second GEMM adds into z; else into a new tensor.  ``split``
+    splits K over CTAs through an f32 workspace and a fixed-order reduction,
+    as K2's weight gradients do.
+
+    CPU tensors: the plain version.  CUDA: the kernel on the current stream,
+    or an error."""
+    if a.device.type == "cpu":
+        out = gemm_reference(a, b, layout, bias, c)
+        return c.copy_(out) if c is not None else out
+    if layout not in GEMM_LAYOUTS:
+        raise ValueError(f"gemm_bf16: layout {layout!r} is not one of "
+                         f"{sorted(GEMM_LAYOUTS)}")
+    for t, what in ((a, "a"), (b, "b")):
+        if t.device.type != "cuda" or t.device != a.device \
+                or t.dtype != torch.bfloat16 or t.dim() != 2 \
+                or not t.is_contiguous() or t.shape[1] % 8:
+            raise ValueError(f"gemm_bf16: {what} must be a contiguous 2-D "
+                             f"bf16 cuda tensor with rows of a multiple of 8 "
+                             f"elements, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    A, B = gemm_operands(a, b, layout)
+    (M, K), N = A.shape, B.shape[1]
+    if B.shape[0] != K or min(M, N, K) < 1 or max(M, N, K) >= 2 ** 31:
+        raise ValueError(f"gemm_bf16: {layout} operands {tuple(a.shape)} "
+                         f"and {tuple(b.shape)} do not fit")
+    for t, shape, what in ((bias, (N,), "bias"), (c, (M, N), "c")):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != shape
+                              or t.device != a.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"gemm_bf16: {what} must be contiguous f32 "
+                             f"{shape} on {a.device}")
+    out = c if c is not None else torch.empty((M, N), device=a.device)
+    ws_floats = _MAX_SPLITS * M * N if split else 0
+    ws = torch.empty((ws_floats,), device=a.device) if split else None
+    a_kc, b_kc = GEMM_LAYOUTS[layout]
+    lib = _library(FWD_KERNEL)
+    with torch.cuda.device(a.device):
+        err = lib.trunk_train_gemm_launch(
+            a.data_ptr(), int(a_kc), a.shape[1], b.data_ptr(), int(b_kc),
+            b.shape[1], out.data_ptr(), N,
+            bias.data_ptr() if bias is not None else None, M, N, K,
+            int(c is not None), int(split),
+            ws.data_ptr() if split else None, ws_floats,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        _raise(lib, FWD_KERNEL, err, f"gemm {layout} {M}x{N}x{K}")
+    gemm_bf16.launches += 1
+    return out
+
+
+gemm_bf16.launches = 0
 
 
 class TrunkTrain(torch.autograd.Function):

@@ -1,6 +1,7 @@
 """The kernels on the card: K3 (the inference trunk) and K1/K2 (the
 training trunk's forward and backward) against their plain versions, the
-wrappers' checks and launch counts, a render on the card against the same
+bf16 GEMM inside K1/K2 against the f32 product, the wrappers' checks and
+launch counts, a render on the card against the same
 render on the CPU, and training steps on the card through K1/K2.
 
 Every test here needs a CUDA card and skips without one.  Run them on a
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 # the kernel tolerances, stated there
-from chip_smoke import K1_REL_TOL, K2_REL_TOL, TOL, make_model, train_params
+from chip_smoke import (GEMM_REL_TOL, K1_REL_TOL, K2_REL_TOL, TOL,
+                        gemm_case, gemm_rel_err, make_model, train_params)
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.ingest import save_world_artifact
 from season_nerf_torch.ops import fused_train as ftr
@@ -164,6 +166,60 @@ def test_train_kernels_match_plain_versions(cuda, name, dtype, fast_sine):
             <= K2_REL_TOL[dt], k
 
 
+# The bf16 GEMM of K1 and K2 (TMA + wgmma) against the f32 product of the
+# same bf16 operands on the card: every layout, M = 200 (not a multiple of
+# the 128-row tile), the K and N that the trunk's shapes take (K = 8: the
+# heads' input gradient; 64: the PE; 576: the skip layer's [h | PE]; N = 8:
+# the heads; 16: the small specs; 256: fc9; 512: a full layer).  The error
+# of each element is held against (|A| . |B|) there (see GEMM_REL_TOL).
+@pytest.mark.parametrize("n", [8, 16, 256, 512])
+@pytest.mark.parametrize("k", [8, 64, 576])
+@pytest.mark.parametrize("layout", list(ftr.GEMM_LAYOUTS))
+def test_gemm_matches_f32_matmul(cuda, layout, k, n):
+    a, b, _, _ = gemm_case(layout, 200, n, k, cuda, seed=k * n)
+    launches = ftr.gemm_bf16.launches
+    got = ftr.gemm_bf16(a, b, layout)
+    assert ftr.gemm_bf16.launches == launches + 1
+    assert got.shape == (200, n) and torch.isfinite(got).all()
+    assert gemm_rel_err(got, a, b, layout) <= GEMM_REL_TOL
+
+
+@pytest.mark.parametrize("layout,m,n,k,bias,acc,split", [
+    ("fwd", 1000, 512, 512, True, False, False),     # a layer: z = h.W + b
+    ("fwd", 2048 + 5, 512, 64, True, True, False),   # the skip layer's PE half
+    ("fwd", 777, 8, 256, True, False, False),        # the heads
+    ("dgrad", 300, 256, 8, False, True, False),      # the heads' da
+    ("wgrad", 576, 512, 20_000 + 37, False, False, True),   # dW, split-K
+    ("wgrad", 64, 512, 4096, False, True, True),
+])
+def test_gemm_bias_accumulate_split(cuda, layout, m, n, k, bias, acc, split):
+    """The epilogue's contract: + bias, + C (in place in the kernels), and
+    split-K through the workspace with a fixed-order reduction, whose bits
+    do not change from call to call."""
+    a, b, bias_t, c = gemm_case(layout, m, n, k, cuda, seed=m + n + k)
+    bias_t = bias_t if bias else None
+    c = c if acc else None
+    got, again = (ftr.gemm_bf16(a, b, layout, bias=bias_t, split=split,
+                                c=None if c is None else c.clone())
+                  for _ in range(2))
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert gemm_rel_err(got, a, b, layout, bias_t, c) <= GEMM_REL_TOL
+
+
+def test_gemm_rejects_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros(64, 32, dtype=torch.bfloat16, device=cuda)
+    for bad_a, bad_b in ((a.float(), a.t().contiguous()),
+                         (a[:, :30].contiguous(), a[:30].t().contiguous()),
+                         (a, a), (a, a.t())):
+        with pytest.raises(ValueError):
+            ftr.gemm_bf16(bad_a, bad_b, "fwd")
+    with pytest.raises(ValueError):
+        ftr.gemm_bf16(a, a.t().contiguous(), "bwd")
+    with pytest.raises(ValueError):
+        ftr.gemm_bf16(a, a.t().contiguous(), "fwd",
+                      bias=torch.zeros(32, device=cuda))
+
+
 def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
     spec = ftr.TrunkSpec(widths=(32, 32, 32, 16), skip_idx=2, pe_dim=16,
                          tile=64)
@@ -177,6 +233,19 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ftr.trunk_bwd(spec, pe, params, torch.zeros(64, 16, device=cuda),
                       torch.zeros(128, 8, device=cuda))
+    # TMA wants rows of a multiple of 8 bf16 values: widths and pe_dim too
+    for kw in (dict(widths=(32, 36, 32, 16)), dict(pe_dim=12)):
+        odd = ftr.TrunkSpec(**{**dict(widths=(32, 32, 32, 16), skip_idx=2,
+                                      pe_dim=16, tile=64), **kw})
+        odd_params = [p.to(cuda) for p in train_params(odd, 1)]
+        odd_pe = torch.zeros(128, odd.pe_dim, dtype=torch.bfloat16,
+                             device=cuda)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ftr.trunk_fwd(odd, odd_pe, odd_params)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ftr.trunk_bwd(odd, odd_pe, odd_params,
+                          torch.zeros(128, 16, device=cuda),
+                          torch.zeros(128, 8, device=cuda))
 
 
 def test_trainer_steps_on_the_card_through_k1_and_k2(cuda):

@@ -196,6 +196,54 @@ def test_wrappers_run_the_plain_version_on_cpu_only():
         ftr.trunk_fwd(spec, pe.to("meta"), [p.to("meta") for p in params])
 
 
+# --- the GEMM inside K1 and K2 ------------------------------------------------
+@pytest.mark.parametrize("layout", sorted(ftr.GEMM_LAYOUTS))
+def test_gemm_plain_version_matches_jax_dot(layout):
+    """``gemm_bf16`` on CPU tensors (its plain version) against ``jnp.dot``
+    of the same bf16 operands with f32 accumulation, the product
+    ``pallas_train``'s kernels take for every layer, then ``c +`` and ``+
+    bias``, each operand stored as the layout says.  Exact products, f32
+    sums in other orders: 1e-5 of sum |a| |b|."""
+    rng = np.random.default_rng(11)
+    M, N, K = 40, 24, 72
+    A = jnp.asarray(rng.uniform(-0.5, 1, (M, K)), jnp.bfloat16)
+    B = jnp.asarray(rng.uniform(-0.5, 1, (K, N)), jnp.bfloat16)
+    bias = rng.standard_normal(N).astype(np.float32)
+    c = rng.standard_normal((M, N)).astype(np.float32)
+    want = c + jnp.dot(A, B, preferred_element_type=jnp.float32) + bias
+    a_kc, b_kc = ftr.GEMM_LAYOUTS[layout]
+    a = _t(A) if a_kc else _t(A).t().contiguous()
+    b = _t(B).t().contiguous() if b_kc else _t(B)
+    out = torch.from_numpy(c.copy())
+    launches = ftr.gemm_bf16.launches
+    got = ftr.gemm_bf16(a, b, layout, bias=torch.from_numpy(bias), c=out)
+    assert got is out and ftr.gemm_bf16.launches == launches
+    scale = np.abs(_np(A)) @ np.abs(_np(B)) + np.abs(c) + np.abs(bias)
+    assert np.all(np.abs(got.numpy() - _np(want)) <= 1e-5 * scale)
+    np.testing.assert_allclose(
+        ftr.gemm_bf16(a, b, layout).numpy(),
+        _np(jnp.dot(A, B, preferred_element_type=jnp.float32)),
+        rtol=0, atol=1e-5 * float(scale.max()))
+
+
+def test_gemm_wrapper_refuses_what_is_not_cpu_or_cuda():
+    a = torch.zeros(16, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="cuda"):
+        ftr.gemm_bf16(a.to("meta"), a.t().contiguous().to("meta"), "fwd")
+
+
+def test_card_width_rule():
+    """On the card, TMA loads the GEMM's bf16 rows, 16 bytes at a time:
+    widths and pe_dim must be multiples of 8.  The specs in use pass."""
+    for spec in (ftr.TrunkSpec(), ftr.TrunkSpec(**SMALL),
+                 ftr.TrunkSpec(widths=(256,) * 8 + (128,), tile=128)):
+        ftr.check_card_widths(spec, "trunk_fwd")
+    for kw in (dict(widths=(32, 36, 32, 16)), dict(pe_dim=12)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ftr.check_card_widths(ftr.TrunkSpec(**{**SMALL, **kw}),
+                                  "trunk_fwd")
+
+
 # --- the network glue: pack_params, TrunkTrain, batch_stats_updates ---------
 W = 256   # the narrowest width spec_for_model accepts (128-multiples)
 
