@@ -11,14 +11,20 @@ layer folds to ``sin(x @ W'^T + b')`` with
 (fc1 has no norm).  :func:`fold_trunk` does this once per loaded model, in
 float64 on the host, then casts and keeps the result on the device.  It
 works from a layer table, so it serves every depth and width the model
-builds: widths are zero-padded to a multiple of 32 (the kernel's tile) and
-the 63-wide positional encoding to 64; padded outputs are sin(0) = 0 and
-padded inputs meet zero weights.
+builds: widths are zero-padded to a multiple of 128 (one slot of the bf16
+kernel's weight ring, two of its 64-wide K chunks) and the 63-wide
+positional encoding to 64; padded outputs are sin(0) = 0 and padded inputs
+meet zero weights.
 
 :func:`trunk_apply` is the kernel's wrapper.  For a CPU tensor it runs the
 plain version, :func:`trunk_apply_reference`; for a CUDA tensor it launches
 ``csrc/trunk_infer.cu`` or raises.  ``trunk_apply.launches`` counts the
-launches.
+launches.  The bf16 kernel (TMA + wgmma, clusters of two 64-row tiles)
+reads each layer's W' through a tensor map: :meth:`FoldedTrunk.launch_plan`
+says per layer what the map covers, and :meth:`FoldedTrunk.tensor_maps`
+encodes the maps once per folded trunk.  It takes padded widths up to
+``MAX_WIDTH`` and up to ``MAX_LAYERS`` layers.  The f32 kernel (FFMA)
+reads the device layer table of :meth:`FoldedTrunk.layer_table`.
 """
 
 from __future__ import annotations
@@ -38,20 +44,24 @@ from season_nerf_torch.ops.fast_math import fast_sin
 
 PE_FREQS = 10
 PE_DIM = encoded_size(3, PE_FREQS)      # 63
-MULTIPLE = 32                           # padding of every width
+MULTIPLE = 128                          # padding of every width
 KERNEL = "trunk_infer"
+CLUSTER = 2             # CTAs of the bf16 kernel's cluster (trunk_infer.cu)
+SLOT_ROWS = 128         # W' rows of a slot of its weight ring
+MAX_WIDTH = 512         # the bf16 kernel's widest padded layer
+MAX_LAYERS = 9          # the bf16 kernel's deepest trunk: fc1..fc8 + fc9
 
 
 def _pad_to(n: int) -> int:
     return -(-n // MULTIPLE) * MULTIPLE
 
 
-PE_PAD = _pad_to(PE_DIM)                # 64
+PE_PAD = 64                             # one 64-wide K chunk
 
 
 @dataclasses.dataclass
 class FoldedTrunk:
-    """Folded, padded trunk weights and the kernel's buffer plan.
+    """Folded, padded trunk weights and what the kernels read of them.
 
     ``weights[i]`` is ``[n_pad, k_pad]`` in the compute dtype and
     ``biases[i]`` ``[n_pad]`` float32.  ``inputs[i]`` names what layer i
@@ -63,13 +73,15 @@ class FoldedTrunk:
     width_pad: int
     out_features: int
     _table: Optional[torch.Tensor] = None
+    _plan: Optional[torch.Tensor] = None
+    _maps: Optional[torch.Tensor] = None
 
     @property
     def dtype(self) -> torch.dtype:
         return self.weights[0].dtype
 
     def buffer_plan(self):
-        """-> per layer (in_buf, in_off, out_buf) over the kernel's two
+        """-> per layer (in_buf, in_off, out_buf) over the f32 kernel's two
         shared-memory buffers: A = [h | PE], B = h.  The layer before the
         skip writes A, so that the skip layer reads [h | PE] in place; the
         other layers alternate.  fc1 reads A's PE columns, so it may write
@@ -88,7 +100,7 @@ class FoldedTrunk:
         return plan
 
     def layer_table(self) -> torch.Tensor:
-        """The int64 layer table the kernel reads (``trunk_infer.cu``),
+        """The int64 layer table the f32 kernel reads (``trunk_infer.cu``),
         built once, on the weights' device."""
         if self._table is None:
             rows = []
@@ -99,6 +111,42 @@ class FoldedTrunk:
             self._table = torch.tensor(rows, dtype=torch.int64,
                                        device=self.weights[0].device)
         return self._table
+
+    def launch_plan(self) -> torch.Tensor:
+        """The bf16 kernel's plan, int64 on the host, one row per layer
+        (``PlanField`` in ``trunk_infer.cu``): W' and b' pointers, k, n,
+        the tensor map's box (64 K x SLOT_ROWS / CLUSTER W' rows: each CTA
+        of the cluster loads its share of a slot of the kernel's weight
+        ring and multicasts it), W''s row stride in bytes, and the K chunk
+        that reads the PE (fc1: 0; the skip layer: after h's chunks; -1
+        where none does).  Built once."""
+        if self._plan is None:
+            rows = []
+            for w, b, kind in zip(self.weights, self.biases, self.inputs):
+                n, k = w.shape
+                pe_chunk = {"pe": 0, "h": -1,
+                            "h+pe": self.width_pad // 64}[kind]
+                rows.append([w.data_ptr(), b.data_ptr(), k, n, 64,
+                             SLOT_ROWS // CLUSTER, k * w.element_size(),
+                             pe_chunk])
+            self._plan = torch.tensor(rows, dtype=torch.int64)
+        return self._plan
+
+    def tensor_maps(self) -> torch.Tensor:
+        """The bf16 kernel's tensor maps of every W', 128 bytes a layer on
+        the host, encoded once (the weights do not change)."""
+        if self._maps is None:
+            plan = self.launch_plan()
+            maps = torch.zeros(len(self.weights) * 128, dtype=torch.uint8)
+            err = _launcher().trunk_bf16_encode(
+                plan.data_ptr(), len(self.weights), self.out_features,
+                maps.data_ptr())
+            if err != 0:
+                raise ValueError(f"the bf16 trunk kernel cannot map these "
+                                 f"weights (error {err}): widths "
+                                 f"{[tuple(w.shape) for w in self.weights]}")
+            self._maps = maps
+        return self._maps
 
 
 def trunk_layers(gnerf):
@@ -169,13 +217,17 @@ def trunk_apply_reference(pe: torch.Tensor, folded: FoldedTrunk,
 
 def _launcher():
     lib = cuda_build.load(KERNEL)
-    fn = lib.trunk_infer_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_void_p] + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.trunk_infer_error_string.argtypes = [ctypes.c_int]
+    if lib.trunk_bf16_launch.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.trunk_bf16_encode.argtypes = [ptr, i32, i32, ptr]
+        lib.trunk_bf16_launch.argtypes = [ptr, i32, ptr, ptr, ptr] \
+            + [i32] * 3 + [ptr]
+        lib.trunk_f32_launch.argtypes = [ptr, i32, ptr, ptr] + [i32] * 6 \
+            + [ptr]
+        for fn in (lib.trunk_bf16_encode, lib.trunk_bf16_launch,
+                   lib.trunk_f32_launch):
+            fn.restype = i32
+        lib.trunk_infer_error_string.argtypes = [i32]
         lib.trunk_infer_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -203,6 +255,12 @@ def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
         if t.device != pe.device or not t.is_contiguous():
             raise ValueError("folded trunk weights must be contiguous and on "
                              f"the PE's device {pe.device}")
+    bf16 = folded.dtype == torch.bfloat16
+    if bf16 and (folded.width_pad > MAX_WIDTH
+                 or len(folded.weights) > MAX_LAYERS):
+        raise ValueError(f"the bf16 trunk kernel takes widths up to "
+                         f"{MAX_WIDTH} and up to {MAX_LAYERS} layers, got "
+                         f"{folded.width_pad} and {len(folded.weights)}")
     n = pe.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"trunk kernel takes fewer than 2^31 rows, got {n}")
@@ -212,17 +270,24 @@ def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
         return out
     lib = _launcher()
     with torch.cuda.device(pe.device):      # launch on the tensors' card
-        err = lib.trunk_infer_launch(
-            folded.layer_table().data_ptr(), len(folded.weights),
-            pe.data_ptr(), out.data_ptr(), n, PE_PAD, folded.out_features,
-            folded.width_pad + PE_PAD, folded.width_pad,
-            int(folded.dtype == torch.bfloat16), int(fast_sine),
-            torch.cuda.current_stream(pe.device).cuda_stream)
+        stream = torch.cuda.current_stream(pe.device).cuda_stream
+        if bf16:
+            err = lib.trunk_bf16_launch(
+                folded.launch_plan().data_ptr(), len(folded.weights),
+                folded.tensor_maps().data_ptr(), pe.data_ptr(),
+                out.data_ptr(), n, folded.out_features, int(fast_sine),
+                stream)
+        else:
+            err = lib.trunk_f32_launch(
+                folded.layer_table().data_ptr(), len(folded.weights),
+                pe.data_ptr(), out.data_ptr(), n, PE_PAD,
+                folded.out_features, folded.width_pad + PE_PAD,
+                folded.width_pad, int(fast_sine), stream)
     if err != 0:
         raise RuntimeError(
             f"trunk_infer launch failed: "
             f"{lib.trunk_infer_error_string(err).decode()} (widths "
-            f"{folded.width_pad} + PE {PE_PAD} may exceed shared memory)")
+            f"{folded.width_pad} + PE {PE_PAD})")
     trunk_apply.launches += 1
     return out
 

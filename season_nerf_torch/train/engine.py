@@ -9,7 +9,9 @@ The counterpart of ``season_nerf_tpu/train/engine.py``'s ``Trainer``:
   Season-NeRF loss (``train/losses``), backward, both updates;
 - ``pallas_trunk`` runs the trunk through the hand-written kernels K1/K2
   (ghost BatchNorm, ``ops/fused_train``) where ``spec_for_model`` accepts
-  the model, and warns and keeps the default trunk where it does not;
+  the model; where it does not, :func:`fused_trunk_spec` raises on the card
+  and, on the CPU, warns and keeps the default trunk as the JAX package
+  does;
 - full-state checkpoints at the save points, ``resume``, and ``finalize``
   writing ``Final_Model.nn``.
 
@@ -87,6 +89,23 @@ class StepDraws:
                 "solar_jitter": u(R, S)}
 
 
+def fused_trunk_spec(model, rows: int, device):
+    """The ``TrunkSpec`` that ``pallas_trunk`` trains ``model``'s trunk
+    with over ``rows`` points a pass, or None for the default trunk.  Where
+    ``spec_for_model`` refuses the model: on a CUDA device a ValueError
+    with its reason, since the default trunk (full-batch BatchNorm) is
+    another function and would hide K1/K2; on the CPU a warning and None,
+    as the JAX package falls back."""
+    from season_nerf_torch.ops.fused_train import spec_for_model
+    spec, why = spec_for_model(model, rows)
+    if spec is None:
+        if torch.device(device).type == "cuda":
+            raise ValueError(f"pallas_trunk requested but unsupported: {why}")
+        warnings.warn(f"pallas_trunk requested but unsupported ({why}): "
+                      f"falling back to the default trunk", stacklevel=3)
+    return spec
+
+
 class Trainer:
     def __init__(self, cfg: Config, train_table: RayTable,
                  prior_hm: Optional[np.ndarray] = None,
@@ -143,13 +162,9 @@ class Trainer:
                 alpha_cfg = _alpha_cfg()
         spec = None
         if cfg.pallas_trunk:
-            from season_nerf_torch.ops.fused_train import spec_for_model
-            spec, why = spec_for_model(self.model,
-                                       cfg.batch_size * cfg.n_samples)
-            if spec is None:
-                warnings.warn(f"pallas_trunk requested but unsupported "
-                              f"({why}): falling back to the default trunk",
-                              stacklevel=2)
+            spec = fused_trunk_spec(self.model,
+                                    cfg.batch_size * cfg.n_samples,
+                                    self.device)
         return LossStatics(
             n_samples=cfg.n_samples, use_prior=use_prior,
             use_solar=cfg.Use_Solar, classic_solar=cfg.Solar_Type_2,

@@ -17,8 +17,9 @@ import pytest
 import torch
 
 # the kernel tolerances, stated there
-from chip_smoke import (GEMM_REL_TOL, K1_REL_TOL, K2_REL_TOL, TOL,
-                        gemm_case, gemm_rel_err, make_model, train_params)
+from chip_smoke import (GEMM_REL_TOL, K1_REL_TOL, K2_REL_TOL, RENDER_TOL,
+                        TOL, gemm_case, gemm_rel_err, make_model,
+                        train_params)
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.ingest import save_world_artifact
 from season_nerf_torch.ops import fused_train as ftr
@@ -44,19 +45,28 @@ def _model(width, depth):
     return make_model(Config(fc_units=width, fc_layers=depth))
 
 
+def _pe(n, device):
+    gen = torch.Generator(device=device).manual_seed(n)
+    return ft.encode_points(torch.rand(n, 3, generator=gen, device=device)
+                            * 2 - 1).contiguous()
+
+
+# Full width at every row count that shapes the bf16 kernel's grid (64-row
+# tiles in clusters of two): one row (a cluster of one live and one idle
+# tile), one tile, a ragged odd tile count (777: 13 tiles), 4,133, the
+# exact-shadow chunk (5,120), 20,037 and the flagship render chunk
+# (491,520); then narrow, shallow trunks.  Tolerances: chip_smoke.TOL.
 @pytest.mark.parametrize("fast_sine", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("width,depth,n", [(512, 8, 20_000 + 37),
-                                           (32, 2, 1000), (96, 7, 777),
-                                           (128, 4, 64)])
+@pytest.mark.parametrize("width,depth,n", [
+    *[(512, 8, n) for n in (1, 64, 777, 4133, 5120, 20_000 + 37, 491_520)],
+    (32, 2, 1000), (96, 7, 777), (128, 4, 64)])
 def test_kernel_matches_plain_version(cuda, width, depth, n, dtype,
                                       fast_sine):
     folded = ft.fold_trunk(_model(width, depth).G_NeRF_net, dtype=dtype,
                            device=cuda)
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    pe = ft.encode_points(torch.rand(n, 3, generator=gen, device=cuda) * 2
-                          - 1).contiguous()
+    pe = _pe(n, cuda)
     launches = ft.trunk_apply.launches
     got = ft.trunk_apply(pe, folded, fast_sine)
     want = ft.trunk_apply_reference(pe, folded, fast_sine)
@@ -68,6 +78,17 @@ def test_kernel_matches_plain_version(cuda, width, depth, n, dtype,
     tol_max, tol_mean = TOL[dtype]
     assert float(err.max()) <= tol_max
     assert float(err.mean()) <= tol_mean
+
+
+def test_kernel_repeats_bit_for_bit(cuda):
+    """Two launches on the same input give the same bytes: each output
+    element's sums run in one fixed order (no atomics, no split)."""
+    folded = ft.fold_trunk(_model(512, 8).G_NeRF_net, dtype=torch.bfloat16,
+                           device=cuda)
+    pe = _pe(20_000 + 37, cuda)
+    for fast_sine in (True, False):
+        a, b = (ft.trunk_apply(pe, folded, fast_sine) for _ in range(2))
+        assert torch.equal(a, b)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -82,6 +103,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         ft.trunk_apply(pe, ft.fold_trunk(_model(32, 2).G_NeRF_net,
                                          dtype=torch.float16, device=cuda))
+    # the bf16 kernel: padded widths up to 512, up to 9 layers
+    bf = ft.fold_trunk(_model(32, 2).G_NeRF_net, dtype=torch.bfloat16,
+                       device=cuda)
+    deep = ft.FoldedTrunk(bf.weights[:2] * 5, bf.biases[:2] * 5,
+                          bf.inputs[:2] * 5, bf.width_pad, bf.out_features)
+    wide = ft.fold_trunk(_model(576, 2).G_NeRF_net, dtype=torch.bfloat16,
+                         device=cuda)
+    for bad in (deep, wide):
+        with pytest.raises(ValueError, match="bf16 trunk kernel"):
+            ft.trunk_apply(pe, bad)
     launches = ft.trunk_apply.launches
     assert ft.trunk_apply(pe[:0], folded).shape == (0, 16)
     assert ft.trunk_apply.launches == launches       # nothing to launch
@@ -112,6 +143,29 @@ def test_render_on_the_card_matches_the_cpu(cuda, tmp_path):
                                    err_msg=k)
     np.testing.assert_allclose(card.get_dsm(12), cpu.get_dsm(12), atol=5e-2,
                                rtol=0)
+
+
+def test_render_16px_full_width_matches_the_cpu(cuda, tmp_path):
+    """The flagship model (``Config()``: width 512, bf16, polynomial sine)
+    renders a 16 px frame on the card (K3) as on the CPU (plain versions),
+    within chip_smoke.RENDER_TOL: bf16 colors and heights."""
+    cfg = Config()
+    cfg.save_json(str(tmp_path / "opts.json"))
+    save_model_artifact(str(tmp_path / "Final_Model.nn"),
+                        make_model(cfg).state_dict())
+    save_world_artifact(str(tmp_path / "W2C_W2L_H.npy"), None, None,
+                        (0.0, 30.0))
+    args = ((70.0, 30.0), (45.0, 180.0), 0.5, 16)
+    launches = ft.trunk_apply.launches
+    got = load_model_dir(str(tmp_path), device=cuda).renderer.render_img(
+        *args)
+    assert ft.trunk_apply.launches - launches == -(-16 * 16 // cfg.chunk)
+    want = load_model_dir(str(tmp_path), device="cpu").renderer.render_img(
+        *args)
+    for k in ("Col_Img", "Shadow_Mask", "Height", "PS_Sum"):
+        assert np.isfinite(got[k]).all(), k
+        np.testing.assert_allclose(got[k], want[k], atol=RENDER_TOL, rtol=0,
+                                   err_msg=k)
 
 
 def test_entry_points_default_to_the_card(cuda, tmp_path):

@@ -348,3 +348,37 @@ def test_spec_for_model_guards(tiny):
                     use_norm=False), "BatchNorm")):
         spec, why = ftr.spec_for_model(model, 64, tile=32)
         assert spec is None and word in why
+
+
+# --- pallas_trunk on a model the fused path does not represent ---------------
+def test_fused_trunk_spec_raises_on_the_card(tiny):
+    """On a CUDA device a refused model raises with spec_for_model's
+    reason (decided from the device alone: no card needed); an accepted
+    model gets its spec on either device."""
+    from season_nerf_torch.train.engine import fused_trunk_spec
+    refused = TTNeRF(layer_width=W, n_layers=8, dtype=None)
+    with pytest.raises(ValueError, match="compute_dtype=bfloat16"):
+        fused_trunk_spec(refused, 2048, torch.device("cuda"))
+    with pytest.raises(ValueError, match="divisible"):
+        fused_trunk_spec(tiny[2], 2047, "cuda:0")
+    for device in (torch.device("cuda"), torch.device("cpu")):
+        spec = fused_trunk_spec(tiny[2], 2048, device)
+        assert spec is not None and spec.widths == (W,) * 8 + (W // 2,)
+
+
+def test_trainer_on_the_cpu_warns_and_trains_on_the_default_trunk():
+    """On the CPU a refused model (float32 here) keeps today's behaviour,
+    as the JAX package does: a warning, then the default trunk."""
+    from season_nerf_torch.config import Config
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    from season_nerf_torch.train.engine import Trainer
+    scene = make_scene(n_views=3, img_size=12, grid=16, seed=2)
+    table, _ = scene_ray_tables(scene, testing_size=1)
+    cfg = Config(fc_units=32, batch_size=16, n_samples=8, max_train_steps=4,
+                 compute_dtype="float32", n_saves=0, logs_dir="",
+                 pallas_trunk=True)
+    tr = Trainer(cfg, table, prior_hm=scene.prior_hm, device="cpu")
+    with pytest.warns(UserWarning, match="falling back to the default trunk"):
+        loss = tr.train_step()
+    assert tr.statics.trunk_spec is None
+    assert all(bool(torch.isfinite(v)) for v in loss.values())

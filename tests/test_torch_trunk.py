@@ -173,6 +173,36 @@ def test_buffer_plan_reads_the_skip_concat_in_place():
                 assert plan[i][0] == 0
 
 
+@pytest.mark.parametrize("width", [32, 96, 512])
+def test_launch_plan_maps_every_layer(width):
+    """The bf16 kernel's host-side plan: per layer W' as [n, k] with n a
+    multiple of 128 and k of 64, a tensor map box of 64 K x SLOT_ROWS /
+    CLUSTER W' rows (each CTA of the cluster loads its share of a slot of
+    the kernel's weight ring and multicasts it), W''s row stride, and the
+    K chunk that reads the PE: fc1's only chunk, the skip layer's chunk
+    after h's."""
+    g = TTNeRF(layer_width=width, n_layers=8).eval().G_NeRF_net
+    folded = ft.fold_trunk(g, dtype=torch.bfloat16)
+    plan = folded.launch_plan()
+    assert plan is folded.launch_plan()                  # built once
+    assert plan.dtype == torch.int64 and plan.device.type == "cpu"
+    wp = -(-width // 128) * 128
+    assert folded.width_pad == wp
+    out_pad = -(-(width // 2) // 128) * 128
+    want_k = [64] + [wp] * 3 + [wp + 64] + [wp] * 4
+    want_n = [wp] * 8 + [out_pad]
+    want_pe = [0, -1, -1, -1, wp // 64, -1, -1, -1, -1]
+    for l, row in enumerate(plan.tolist()):
+        w, b = folded.weights[l], folded.biases[l]
+        assert row[:2] == [w.data_ptr(), b.data_ptr()]
+        assert row[2:] == [want_k[l], want_n[l], 64,
+                           ft.SLOT_ROWS // ft.CLUSTER, 2 * want_k[l],
+                           want_pe[l]], l
+        assert tuple(w.shape) == (want_n[l], want_k[l])
+        assert want_n[l] <= ft.MAX_WIDTH and want_n[l] % ft.SLOT_ROWS == 0
+    assert len(plan) <= ft.MAX_LAYERS
+
+
 def test_trunk_apply_takes_the_plain_version_only_on_the_cpu():
     g = TTNeRF(layer_width=32, n_layers=2).eval().G_NeRF_net
     folded = ft.fold_trunk(g)
