@@ -44,7 +44,18 @@ Phases, each fatal on failure:
    a small bf16 model 3 steps on the CPU and on the card from the same
    weights and draws and compare step 0's gradient of every leaf and the
    losses;
-6. print one ``{"kernels": [...]}`` line, then, as the last line,
+6. the real-site path: fabricate a DFC-format site from the seed (10
+   GeoTIFFs of 2048 x 2048 px at 0.3 m with RPCs in tag 50844 and
+   ``.ikono`` files, IMDs, a lidar DSM at 0.5 m with its UTM sidecar),
+   ``cli.run_train`` on it with the flagship config (ingest, camera fits,
+   the full-resolution ray table and its cache, the Space_Carve prior swept
+   on the card at 2 x 2 x 0.25 m, the graph cut, one warm step through
+   K1/K2), 5 timed steps and ``render_pretrained`` of the model directory
+   through K3; check the launch counts, finite losses, the prior in [-1,
+   1], the world frame, the card's sweep against the CPU's on the site's
+   first 4 z-slices, and that the carve recovers a synthetic surface;
+7. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
+   summed over the main paths), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no CUDA device is visible or the
@@ -1064,6 +1075,439 @@ def compare_grads(cpu: dict, card: dict) -> dict:
     return {"rel": rel, "bn_bias_noise": noise}
 
 
+# --- phase 6: the real-site path ----------------------------------------------
+# A DFC2019-format site fabricated from SEED: SITE_VIEWS GeoTIFFs of
+# SITE_PX^2 px at SITE_GSD m a pixel, affine RPCs (parallax by each view's
+# off-nadir angle) fitted as in tests/conftest.py::_toy_rpc, IMDs, and a
+# lidar DSM at DSM_GSD m with its UTM sidecar.  The surface: gentle ground
+# near 215 m and SITE_BUILDINGS soft-edged buildings 8-33 m high; the
+# images: a multi-scale texture of the ground, tinted by each view's date.
+SITE_NAME = "OMA_900"
+SITE_VIEWS = 10
+SITE_PX = 2048
+SITE_GSD = 0.3
+SITE_LAT, SITE_LON = 39.0, -83.95
+SITE_HALF_M = 400.0                 # the RPCs' and the scene's half extent
+SITE_BUILDINGS = 40
+DSM_GSD = 0.5
+M_PER_DEG_LAT = 111_000.0
+SITE_STEPS = 5                      # timed steps after run_train's warm one
+SITE_RENDER_PX = 64
+# The card's sweep against the CPU's (both this port) over the site's
+# first 4 z-slices: the same f32 arithmetic in other orders (FMA
+# contraction in the projection and the bilinear weights); a pixel
+# coordinate near 2048 carries ~1e-4 px of f32 rounding, so a few 1e-6 of
+# a score.  Held to 1e-4.
+SWEEP_TOL = 1e-4
+# the carve of a known surface: the JAX package's own bar
+# (tests/test_priors.py::test_space_carving_recovers_heightfield)
+CARVE_TOL = 0.25
+
+
+def _tiff_entry(order, tag, typ, values, extra_off):
+    """-> (the 12-byte entry, bytes that go to the offset area)."""
+    code, size = {3: ("H", 2), 4: ("I", 4), 12: ("d", 8)}[typ]
+    raw = struct.pack(order + code * len(values), *values)
+    head = struct.pack(order + "HHI", tag, typ, len(values))
+    if len(raw) <= 4:
+        return head + raw.ljust(4, b"\0"), b""
+    return head + struct.pack(order + "I", extra_off), raw
+
+
+def tiff_bytes(arr: np.ndarray, rpc_values=None) -> bytes:
+    """An uncompressed little-endian TIFF of ``arr`` ([H, W, 3] uint8 or
+    [H, W] float32) in strips of 64 rows, with ``rpc_values`` (92 doubles)
+    as tag 50844 when given.  What ``data/io.read_tiff`` and PIL read."""
+    arr = np.ascontiguousarray(arr)
+    h, w = arr.shape[:2]
+    spp = arr.shape[2] if arr.ndim == 3 else 1
+    bits, fmt = {np.dtype(np.uint8): (8, 1),
+                 np.dtype(np.float32): (32, 3)}[arr.dtype]
+    per = 64
+    strips = [arr[r:r + per].astype(arr.dtype.newbyteorder("<")).tobytes()
+              for r in range(0, h, per)]
+    offsets = list(np.cumsum([8] + [len(s) for s in strips[:-1]]))
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
+            (259, 3, [1]), (262, 3, [2 if spp == 3 else 1]),
+            (273, 4, [int(o) for o in offsets]), (277, 3, [spp]),
+            (278, 4, [per]), (279, 4, [len(s) for s in strips]),
+            (284, 3, [1]), (339, 3, [fmt] * spp)]
+    if rpc_values is not None:
+        tags.append((50844, 12, [float(v) for v in rpc_values]))
+    ifd_off = 8 + sum(len(s) for s in strips)
+    ifd_off += ifd_off % 2
+    extra_off = ifd_off + 2 + 12 * len(tags) + 4
+    entries, extra = b"", b""
+    for tag, typ, values in tags:
+        entry, raw = _tiff_entry("<", tag, typ, values, extra_off + len(extra))
+        entries += entry
+        extra += raw + b"\0" * (len(raw) % 2)
+    body = b"".join(strips)
+    return (b"II" + struct.pack("<HI", 42, ifd_off) + body
+            + b"\0" * (ifd_off - 8 - len(body))
+            + struct.pack("<H", len(tags)) + entries + struct.pack("<I", 0)
+            + extra)
+
+
+def rpc_tag_values(rpc) -> list:
+    """An RPCModel as the 92 doubles of TIFF tag 50844."""
+    return ([0.0, 0.0, rpc.row_offset, rpc.col_offset, rpc.lat_offset,
+             rpc.lon_offset, rpc.alt_offset, rpc.row_scale, rpc.col_scale,
+             rpc.lat_scale, rpc.lon_scale, rpc.alt_scale]
+            + [float(v) for v in np.concatenate(
+                [rpc.row_num, rpc.row_den, rpc.col_num, rpc.col_den])])
+
+
+def rpc_text(rpc) -> str:
+    """An RPCModel as an ``.ikono`` text (``KEY_n: value`` lines)."""
+    lines = [f"LINE_OFF: {rpc.row_offset}", f"SAMP_OFF: {rpc.col_offset}",
+             f"LAT_OFF: {rpc.lat_offset}", f"LONG_OFF: {rpc.lon_offset}",
+             f"HEIGHT_OFF: {rpc.alt_offset}", f"LINE_SCALE: {rpc.row_scale}",
+             f"SAMP_SCALE: {rpc.col_scale}", f"LAT_SCALE: {rpc.lat_scale}",
+             f"LONG_SCALE: {rpc.lon_scale}", f"HEIGHT_SCALE: {rpc.alt_scale}"]
+    for prefix, vec in [("LINE_NUM_COEFF", rpc.row_num),
+                        ("LINE_DEN_COEFF", rpc.row_den),
+                        ("SAMP_NUM_COEFF", rpc.col_num),
+                        ("SAMP_DEN_COEFF", rpc.col_den)]:
+        lines += [f"{prefix}_{i + 1}: {v:.17e}" for i, v in enumerate(vec)]
+    return "\n".join(lines)
+
+
+class SiteScene:
+    """The fabricated surface and texture over local meters (east, north)
+    from (SITE_LAT, SITE_LON), evaluated with torch on ``device``."""
+
+    def __init__(self, seed, device):
+        rng = np.random.default_rng(seed)
+        self.device = device
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+        self.centres = t(rng.uniform(-0.8, 0.8, (SITE_BUILDINGS, 2))
+                         * SITE_HALF_M)
+        self.halves = t(rng.uniform(6.0, 30.0, (SITE_BUILDINGS, 2)))
+        self.tall = t(rng.uniform(8.0, 33.0, SITE_BUILDINGS))
+        self.phases = t(rng.uniform(0, 2 * np.pi, (3, 4)))
+
+    def heights(self, east, north):
+        h = 215.0 + 2.0 * torch.sin(east / 90.0) * torch.cos(north / 70.0)
+        top = torch.zeros_like(east)
+        for (cx, cy), (hx, hy), th in zip(self.centres, self.halves,
+                                          self.tall):
+            inside = (torch.sigmoid((hx - (east - cx).abs()) / 0.5)
+                      * torch.sigmoid((hy - (north - cy).abs()) / 0.5))
+            top = torch.maximum(top, th * inside)
+        return h + top
+
+    def albedo(self, east, north):
+        ch = []
+        for c in range(3):
+            p = self.phases[c]
+            ch.append(0.5 + 0.18 * torch.sin(east / 7.3 + p[0])
+                      * torch.cos(north / 5.1 + p[1])
+                      + 0.12 * torch.sin((east + north) / 2.3 + p[2])
+                      + 0.08 * torch.cos((east - 2 * north) / 1.1 + p[3]))
+        return torch.stack(ch, -1)
+
+
+def fabricate_site(io_dir: str, views: int, px: int, device) -> dict:
+    """Write the DFC-format site under ``io_dir`` -> {views' metadata}."""
+    from season_nerf_torch.geometry import rpc as rpc_lib
+    from season_nerf_torch.geometry.units import wgs84_to_utm
+    rng = np.random.default_rng(SEED + 100)
+    scene = SiteScene(SEED + 101, device)
+    m_lon = M_PER_DEG_LAT * np.cos(np.deg2rad(SITE_LAT))
+    imgs = os.path.join(io_dir, "IEEE_Data", "Images")
+    truth = os.path.join(io_dir, "IEEE_Data", "Track3-Truth")
+    cache = os.path.join(io_dir, "Cache", SITE_NAME)
+    rpcs = os.path.join(cache, "RPCs")
+    for d in (imgs, truth, rpcs):
+        os.makedirs(d, exist_ok=True)
+    # the surface as a 0.25 m raster, which the images are ray-cast against
+    n_r = int(2 * SITE_HALF_M / 0.25)
+    axis = (torch.arange(n_r, device=device, dtype=torch.float32) + 0.5) \
+        * 0.25 - SITE_HALF_M
+    E, N = torch.meshgrid(axis, axis, indexing="xy")     # [north, east]
+    raster = scene.heights(E, N)
+    lookup = lambda e, n: raster[
+        ((n + SITE_HALF_M) / 0.25).long().clamp(0, n_r - 1),
+        ((e + SITE_HALF_M) / 0.25).long().clamp(0, n_r - 1)]
+    meta = []
+    rr, cc = torch.meshgrid(torch.arange(px, device=device,
+                                         dtype=torch.float32),
+                            torch.arange(px, device=device,
+                                         dtype=torch.float32), indexing="ij")
+    for i in range(views):
+        off = float(rng.uniform(4.0, 30.0))
+        vaz = float(rng.uniform(0.0, 360.0))
+        dn, de = rng.uniform(-20.0, 20.0, 2)
+        pr, pc = (np.tan(np.deg2rad(off)) / SITE_GSD
+                  * np.array([np.cos(np.deg2rad(vaz)),
+                              np.sin(np.deg2rad(vaz))]))
+        month = 1 + (i * 11) // max(views - 1, 1)
+        sun_el, sun_az = float(rng.uniform(25, 70)), float(rng.uniform(120,
+                                                                       240))
+
+        def project(lat, lon, alt, dn=dn, de=de, pr=pr, pc=pc):
+            north = (lat - SITE_LAT) * M_PER_DEG_LAT - dn
+            east = (lon - SITE_LON) * m_lon - de
+            return (north / SITE_GSD + px / 2 + (alt - 230.0) * pr,
+                    east / SITE_GSD + px / 2 + (alt - 230.0) * pc)
+
+        half_lat = SITE_HALF_M / M_PER_DEG_LAT
+        half_lon = SITE_HALF_M / m_lon
+        rpc = rpc_lib.fit_rpc_from_projector(
+            project, (SITE_LAT - half_lat, SITE_LAT + half_lat),
+            (SITE_LON - half_lon, SITE_LON + half_lon), (200.0, 260.0))
+        # ray-cast every pixel down from 262 m in 0.25 m steps
+        hit = torch.full_like(rr, 205.0)
+        found = torch.zeros_like(rr, dtype=torch.bool)
+        for alt in np.arange(262.0, 205.0, -0.25):
+            n = (rr - px / 2 - (alt - 230.0) * pr) * SITE_GSD + dn
+            e = (cc - px / 2 - (alt - 230.0) * pc) * SITE_GSD + de
+            now = (~found) & (lookup(e, n) >= alt)
+            hit = torch.where(now, torch.full_like(hit, float(alt)), hit)
+            found |= now
+        n = (rr - px / 2 - (hit - 230.0) * pr) * SITE_GSD + dn
+        e = (cc - px / 2 - (hit - 230.0) * pc) * SITE_GSD + de
+        tint = torch.tensor([1.0, 1.0 + 0.25 * np.sin(np.pi * month / 12),
+                             1.0], device=device)
+        img = (scene.albedo(e, n) * tint).clamp(0, 1) * 255
+        name = f"{SITE_NAME}_{i:03d}_RGB"
+        with open(os.path.join(imgs, name + ".tif"), "wb") as f:
+            f.write(tiff_bytes(img.round().to(torch.uint8).cpu().numpy(),
+                               rpc_tag_values(rpc)))
+        with open(os.path.join(cache, f"rpc_{name}_original.ikono"),
+                  "w") as f:
+            f.write(rpc_text(rpc))
+        with open(os.path.join(rpcs, name + ".IMD"), "w") as f:
+            f.write(f"meanSunAz = {sun_az};\nmeanSunEl = {sun_el};\n"
+                    f"meanOffNadirViewAngle = {off};\nmeanSatAz = {vaz};\n"
+                    f"firstLineTime = 2016-{month:02d}-15T16:{i:02d}:30"
+                    f".000000Z;\n")
+        meta.append({"name": name, "off_nadir": off, "view_az": vaz,
+                     "month": month, "sun_el": sun_el, "sun_az": sun_az,
+                     "shift_m": [float(dn), float(de)],
+                     "cast_hit_share": float(found.float().mean())})
+    # the lidar DSM: UTM-aligned, row 0 at its southern edge, its pixels'
+    # lat/lon by the local linearization of wgs84_to_utm at the centre
+    e0, n0, _, _ = wgs84_to_utm(SITE_LAT, SITE_LON)
+    d = 1e-4
+    e_la, n_la, _, _ = wgs84_to_utm(SITE_LAT + d, SITE_LON)
+    e_lo, n_lo, _, _ = wgs84_to_utm(SITE_LAT, SITE_LON + d)
+    J = np.array([[e_la - e0, e_lo - e0], [n_la - n0, n_lo - n0]]) / d
+    n_d = int(2 * SITE_HALF_M / DSM_GSD)
+    g = np.arange(n_d) * DSM_GSD - SITE_HALF_M
+    GE, GN = np.meshgrid(g, g, indexing="xy")
+    lat_lon = np.linalg.solve(J, np.stack([GE.ravel(), GN.ravel()]))
+    north = torch.tensor(lat_lon[0] * M_PER_DEG_LAT, dtype=torch.float32,
+                         device=device)
+    east = torch.tensor(lat_lon[1] * m_lon, dtype=torch.float32,
+                        device=device)
+    dsm = scene.heights(east, north).reshape(n_d, n_d).cpu().numpy()
+    with open(os.path.join(truth, f"{SITE_NAME}_DSM.tif"), "wb") as f:
+        f.write(tiff_bytes(dsm.astype(np.float32)))
+    np.savetxt(os.path.join(truth, f"{SITE_NAME}_DSM.txt"),
+               [e0 - SITE_HALF_M, n0 - SITE_HALF_M, n_d, DSM_GSD])
+    return {"views": meta, "dsm_range_m": [float(dsm.min()),
+                                          float(dsm.max())]}
+
+
+def _timed(module, name, record, cuda_events=False):
+    """Wrap ``module.name`` so that each call's seconds (or, with
+    ``cuda_events``, device ms by CUDA events) and its arguments land in
+    ``record``; returns a function that restores it."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        if cuda_events:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*args, **kw)
+            end.record()
+            end.synchronize()
+            record.setdefault(name, []).append(
+                {"ms": start.elapsed_time(end), "args": args, "kw": kw})
+        else:
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            record.setdefault(name, []).append(
+                {"s": time.perf_counter() - t0, "args": args, "kw": kw,
+                 "out": out})
+        return out
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, orig)
+
+
+def carve_recovers_surface(device) -> float:
+    """The sweep on ``device`` and the graph cut recover a known surface:
+    the median height error over the score grid."""
+    from season_nerf_torch.data.synthetic import hm_lookup, make_scene
+    from season_nerf_torch.priors import space_carving as sc
+    scene = make_scene(n_views=6, img_size=64, grid=48, seed=2)
+    scores = sc.plane_sweep_scores(scene.cameras, scene.images, (24, 24, 16),
+                                   patch=5, cell_chunk=512, device=device)
+    hm = sc.scores_to_heightmap(scores)
+    xs = (np.linspace(-1, 1, 25)[:-1] + np.linspace(-1, 1, 25)[1:]) / 2
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    return float(np.median(np.abs(hm - hm_lookup(scene.hm, X, Y))))
+
+
+def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
+                   **model_kw) -> dict:
+    """The real-site main path: fabricate a DFC-format site, then
+    ``cli.run_train`` on it (ingest, camera fits, bounds, the ray table
+    with its cache, the lidar DSM, the Space_Carve prior swept on the card,
+    one warm step of the flagship config through K1/K2, ``finalize``),
+    ``steps`` more timed steps, ``finalize`` again and ``render_pretrained``
+    of the written model directory through K3.  The launch counts are set
+    to 0 just before ``run_train`` and read just after the render."""
+    from season_nerf_torch import cli
+    from season_nerf_torch.data import ingest, lidar, rays
+    from season_nerf_torch.ops import fused_train as ftr, fused_trunk as ft
+    from season_nerf_torch.priors import graph_cut, space_carving as sc
+    report = {"views": views, "px": px}
+    rec = {}
+    with tempfile.TemporaryDirectory() as io_dir:
+        t0 = time.perf_counter()
+        report["site"] = fabricate_site(io_dir, views, px, device)
+        report["fabricate_s"] = time.perf_counter() - t0
+        log(f"  fabricated {SITE_NAME}: {views} views of {px} x {px} px at "
+            f"{SITE_GSD} m, lidar DSM {report['site']['dsm_range_m']} m, in "
+            f"{report['fabricate_s']:.1f} s")
+        cfg = flagship_train_config(site_name=SITE_NAME, exp_name="site",
+                                    IO_Location=io_dir, DSM_Mode="Space_Carve",
+                                    img_training_downscale=1, **model_kw)
+        restore = [_timed(ingest, "preprocess_site", rec),
+                   _timed(rays, "build_ray_table", rec),
+                   _timed(rays.RayTable, "save", rec),
+                   _timed(sc, "plane_sweep_scores", rec, cuda_events=True),
+                   _timed(graph_cut, "aexpansion_grid", rec)]
+        try:
+            ftr.trunk_fwd.launches = ftr.trunk_bwd.launches = 0
+            ft.trunk_apply.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tr = cli.run_train(cfg, train_steps=1, device=device)
+            torch.cuda.synchronize()
+            report["run_train_s"] = time.perf_counter() - t0
+            losses = []
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                losses.append(tr.train_step())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            tr.finalize()
+            t0 = time.perf_counter()
+            shown, _ = cli.render_pretrained(
+                cfg.logs_dir, (70.0, 30.0), (45.0, 180.0), "07/01",
+                out_size=SITE_RENDER_PX, device=device)
+            report["render_s"] = time.perf_counter() - t0
+            k1, k2 = ftr.trunk_fwd.launches, ftr.trunk_bwd.launches
+            k3 = ft.trunk_apply.launches
+        finally:
+            for r in restore:
+                r()
+        site = rec["preprocess_site"][0]["out"]
+        table = rec["build_ray_table"][0]["out"]
+        sweep = rec["plane_sweep_scores"][0]
+        prior = tr.prior_hm.cpu().numpy()
+        wc, S, h_range = ingest.load_w2c_w2l(
+            os.path.join(cfg.logs_dir, "W2C_W2L_H.npy"))
+        # the prior against the lidar DSM on the prior's grid, in meters
+        gt = lidar.get_gt_dsm(os.path.join(cfg.root_dir, "Track3-Truth"),
+                              SITE_NAME, prior.shape, site.bounds_lla)
+        to_m = (site.bounds_lla[2][1] - site.bounds_lla[2][0]) / 2
+        report.update(
+            ingest_s=rec["preprocess_site"][0]["s"],
+            fit_px=site.accuracy, bounds_lla=site.bounds_lla.tolist(),
+            ray_rows=len(table), ray_table_host_bytes=table.rows.nbytes,
+            train_rows=tr.train_ds.n,
+            ray_table_device_bytes=(tr.train_ds.rows.numel()
+                                    * tr.train_ds.rows.element_size()),
+            ray_table_build_s=rec["build_ray_table"][0]["s"],
+            ray_table_save_s=rec["save"][0]["s"],
+            sweep_grid=list(sweep["args"][2]), sweep_ms=sweep["ms"],
+            graph_cut_s=rec["aexpansion_grid"][0]["s"],
+            prior_range=[float(np.nanmin(prior)), float(np.nanmax(prior))],
+            prior_vs_lidar_median_m=float(np.nanmedian(np.abs(prior - gt))
+                                          * to_m),
+            step_ms=secs / steps * 1e3,
+            train_rays_per_s=cfg.batch_size * steps / secs,
+            k1_launches=k1, k2_launches=k2, k3_launches=k3,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            last_loss={k: float(v) for k, v in losses[-1].items()},
+            world_center=None if wc is None else list(map(float, wc)),
+            h_range=h_range)
+        log(f"  ingest {report['ingest_s']:.1f} s; projective fit "
+            f"reprojection error mean {site.accuracy['mean_px']:.3e} px, max "
+            f"{site.accuracy['max_px']:.3e} px")
+        log(f"  ray table: {report['ray_rows']} rows ({report['train_rows']} "
+            f"training rows, {report['ray_table_device_bytes'] / 1e9:.3f} GB "
+            f"on the card), built in {report['ray_table_build_s']:.1f} s, of "
+            f"which np.savez_compressed {report['ray_table_save_s']:.1f} s")
+        log(f"  Space_Carve: sweep grid {report['sweep_grid']} on the card in "
+            f"{report['sweep_ms']:.1f} ms (CUDA events), graph cut "
+            f"{report['graph_cut_s']:.1f} s, prior in "
+            f"[{report['prior_range'][0]:.4f}, {report['prior_range'][1]:.4f}]"
+            f", median |prior - lidar DSM| "
+            f"{report['prior_vs_lidar_median_m']:.2f} m")
+        log(f"  training: {report['step_ms']:.1f} ms a step over {steps} "
+            f"timed steps, {report['train_rays_per_s']:.0f} train rays/s, "
+            f"K1 launches {k1}, K2 launches {k2}, peak memory "
+            f"{report['peak_mem_gb']:.2f} GB; Total "
+            f"{report['last_loss']['Total']:.4f}")
+        n_steps = steps + 1
+        if tr.statics.trunk_spec is None:
+            fail("the real-site run did not take the fused trunk")
+        if k1 != 2 * n_steps or k2 != n_steps:
+            fail(f"{n_steps} steps launched K1 {k1} and K2 {k2} times")
+        if not all(finite_losses(l) for l in losses):
+            fail(f"non-finite loss on the real site: {losses[-1]}")
+        if not np.isfinite(prior).all() or prior.min() < -1 \
+                or prior.max() > 1:
+            fail(f"the Space_Carve prior is not finite in [-1, 1]: "
+                 f"{report['prior_range']}")
+        if wc is None or S is None:
+            fail("the real site's W2C_W2L_H.npy has no world frame")
+        want_k3 = -(-SITE_RENDER_PX * SITE_RENDER_PX // cfg.chunk)
+        if k3 != want_k3 or shown.shape != (SITE_RENDER_PX, SITE_RENDER_PX,
+                                            3) \
+                or not np.isfinite(shown).all():
+            fail(f"render_pretrained of the real site: K3 launches {k3} "
+                 f"(the chunking implies {want_k3}), shape {shown.shape}, "
+                 f"finite {np.isfinite(shown).all()}")
+        log(f"  render_pretrained of the model directory at "
+            f"{SITE_RENDER_PX} px: K3 launches {k3}, mean "
+            f"{float(shown.mean()):.4f}, {report['render_s']:.2f} s")
+
+        # the card's sweep against the CPU's on the site's first 4 slices
+        cams, images, grid = sweep["args"][:3]
+        patch = sweep["kw"].get("patch", 5)
+        zs = np.linspace(-1.0, 1.0, grid[2])
+        part = (grid[0], grid[1], 4)
+        kw = dict(patch=patch, z_range=(zs[0], zs[3]))
+        card = sc.plane_sweep_scores(cams, images, part, device=device, **kw)
+        t0 = time.perf_counter()
+        cpu = sc.plane_sweep_scores(cams, images, part, device="cpu", **kw)
+        report["sweep_cpu_4_slices_s"] = time.perf_counter() - t0
+        report["sweep_card_vs_cpu"] = float(np.abs(card - cpu).max())
+        log(f"  sweep, card against CPU over {part}: max abs difference "
+            f"{report['sweep_card_vs_cpu']:.3e} (tol {SWEEP_TOL:g}); the CPU "
+            f"took {report['sweep_cpu_4_slices_s']:.1f} s")
+        if not report["sweep_card_vs_cpu"] <= SWEEP_TOL:
+            fail("the card's plane sweep disagrees with the CPU's")
+        del tr
+    report["carve_median_err"] = carve_recovers_surface(device)
+    log(f"  carve of a known surface (synthetic, 6 views, grid 24 x 24 x 16)"
+        f" on the card: median height error "
+        f"{report['carve_median_err']:.4f} (bar {CARVE_TOL})")
+    if not report["carve_median_err"] < CARVE_TOL:
+        fail("the space carve does not recover the synthetic surface")
+    torch.cuda.empty_cache()
+    return report
+
+
 def main():
     import argparse
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1119,13 +1563,17 @@ def main():
     log("main path: training the flagship config through K1 and K2")
     training = train_path(device)
 
+    log(f"main path: the real-site path, cli.run_train on a fabricated "
+        f"DFC-format site ({SITE_VIEWS} views of {SITE_PX} px)")
+    real_site = real_site_path(device)
+
     flagship = trunk["trunk_infer[bfloat16,fast_sin]"][0]
     kernels = [{
         "name": "trunk_infer",
         "route": "cuda",
         "source": "season_nerf_torch/csrc/trunk_infer.cu",
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
-        "launches": serving["k3_launches"],
+        "launches": serving["k3_launches"] + real_site["k3_launches"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in trunk["trunk_infer[bfloat16,fast_sin]"]),
         "ms": flagship["ms"],
@@ -1136,8 +1584,10 @@ def main():
     }]
     tk = train_kernels["flagship,bf16,fast_sin"]
     for key, name, line, launches in (
-            ("k1", ftr.FWD_KERNEL, 238, training["k1_launches"]),
-            ("k2", ftr.BWD_KERNEL, 273, training["k2_launches"])):
+            ("k1", ftr.FWD_KERNEL, 238,
+             training["k1_launches"] + real_site["k1_launches"]),
+            ("k2", ftr.BWD_KERNEL, 273,
+             training["k2_launches"] + real_site["k2_launches"])):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1157,7 +1607,7 @@ def main():
                    "cuda": torch.version.cuda, "ptxas": ptxas,
                    "trunk": trunk, "serving": serving,
                    "train_kernels": train_kernels, "gemms": gemms,
-                   "training": training,
+                   "training": training, "real_site": real_site,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

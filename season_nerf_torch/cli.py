@@ -1,21 +1,29 @@
 """Command line of the port.
 
-    python -m season_nerf_torch.cli train --site_name SYNTH_A \
+    python -m season_nerf_torch.cli train --site_name OMA_281 \
         --exp_name run --IO_Location DIR [any Config field as --flag] \
         [--train_steps N] [--device cuda]
     python -m season_nerf_torch.cli render --Model_Location DIR \
         --VA 70 30 --SA 45 180 --tf 07/19 [--Output_Size 256 | H W S] \
         [--Save_Name out.png] [--exact_shadow] [--device cuda]
+    python -m season_nerf_torch.cli setup_data --zip_dir ZIPS \
+        --IO_Location DIR [--code_data_path DIR]
 
 ``train`` is the training half of ``main.py`` (the JAX package's
-``run_test``) on a synthetic site (``SYNTH*``): prepare the site, train
-(resuming from the newest ``Model_<step>.nn`` of the log directory), and
-write ``Final_Model.nn``, ``opts.json`` and ``W2C_W2L_H.npy``, a model
-directory ``render`` and the service load.  The eval suite and real sites
-are not ported yet.  ``render`` is the port of ``main_run_Season_NeRF.py``:
-a novel view of a model directory (season-adjusted composite times the
-shadow adjustment), written as PNG.  Serving is
-``python -m season_nerf_torch.render.serving``.
+``run_test``): prepare the site, train (resuming from the newest
+``Model_<step>.nn`` of the log directory), and write ``Final_Model.nn``,
+``opts.json``, ``W2C_W2L_H.npy`` and the split files, a model directory
+that ``render`` and the service load.  A site named ``SYNTH*`` is the
+built-in synthetic scene; any other is a DFC2019-format site under
+``IO_Location`` (``IEEE_Data/Images/*_RGB.tif``, ``Cache/<site>/`` with the
+``.ikono`` RPCs and ``RPCs/*.IMD``, ``IEEE_Data/Track3-Truth/<site>_DSM.{tif,
+txt}``): ingest, camera fits, ray table, the DSM prior (space carving swept
+on the training device) and training.  The eval suite is not ported yet.
+``render`` is the port of ``main_run_Season_NeRF.py``: a novel view of a
+model directory (season-adjusted composite times the shadow adjustment),
+written as PNG.  ``setup_data`` is ``main_setup_data.py``: unpack the
+DFC2019 zips and the repository's ``Data.zip`` into that layout.  Serving
+is ``python -m season_nerf_torch.render.serving``.
 """
 
 from __future__ import annotations
@@ -26,11 +34,14 @@ import glob
 import os
 import re
 import sys
+import zipfile
 from typing import Optional, Tuple
 
 import numpy as np
 
 from season_nerf_torch.config import Config, add_config_flags
+from season_nerf_torch.data import ingest, lidar, rays
+from season_nerf_torch.priors import space_carving
 from season_nerf_torch.geometry.time_enc import year_frac_from_month_day
 from season_nerf_torch.render.loading import load_model_dir
 from season_nerf_torch.render.renderer import images_from_components
@@ -73,43 +84,129 @@ def render_pretrained(model_dir: str, va: Tuple[float, float],
     return shown, imgs
 
 
+def _write_split(cfg: Config, names, train_idx, test_idx):
+    """``Training_Imgs.txt`` / ``Testing_Imgs.txt`` of the log directory."""
+    for fname, idx in (("Training_Imgs.txt", train_idx),
+                       ("Testing_Imgs.txt", test_idx)):
+        with open(os.path.join(cfg.logs_dir, fname), "w") as f:
+            f.write("\n".join(names[i] for i in idx))
+
+
 def prepare_synthetic(cfg: Config):
-    """The synthetic site of ``cfg`` -> (train table, prior DSM); writes the
-    split and the world artifact into the log directory."""
-    from season_nerf_torch.data.ingest import save_world_artifact
-    from season_nerf_torch.data.rays import build_ray_table, train_test_split
+    """The synthetic site of ``cfg`` -> (cameras, table, train_idx,
+    test_idx, prior DSM, ground-truth DSM, height range, world centre,
+    similarity), the world frame None; writes the split and the world
+    artifact into the log directory."""
     from season_nerf_torch.data.synthetic import make_scene
     scene = make_scene(n_views=cfg.synth_views, img_size=cfg.synth_img_size,
                        grid=cfg.synth_grid, seed=cfg.seed)
-    table = build_ray_table(scene.cameras, scene.images,
-                            use_hsluv=cfg.use_HSLuv)
-    train_idx, test_idx = train_test_split(len(scene.cameras),
-                                           testing_size=cfg.testing_size)
+    weights = (rays.camera_weights(scene.cameras)
+               if cfg.weight_training_samples else None)
+    table = rays.build_ray_table(scene.cameras, scene.images,
+                                 weights=weights, use_hsluv=cfg.use_HSLuv)
+    train_idx, test_idx = rays.train_test_split(len(scene.cameras),
+                                                testing_size=cfg.testing_size)
     if cfg.logs_dir:
-        names = [c.name for c in scene.cameras]
-        for fname, idx in (("Training_Imgs.txt", train_idx),
-                           ("Testing_Imgs.txt", test_idx)):
-            with open(os.path.join(cfg.logs_dir, fname), "w") as f:
-                f.write("\n".join(names[i] for i in idx))
+        _write_split(cfg, [c.name for c in scene.cameras], train_idx,
+                     test_idx)
         # no world frame, but the height range lets the model directory
         # serve height maps in meters
-        save_world_artifact(os.path.join(cfg.logs_dir, "W2C_W2L_H.npy"),
-                            None, None, (0.0, 30.0))
-    return table.split(np.array(train_idx)), scene.prior_hm
+        ingest.save_world_artifact(
+            os.path.join(cfg.logs_dir, "W2C_W2L_H.npy"), None, None,
+            (0.0, 30.0))
+    return (scene.cameras, table, list(train_idx), list(test_idx),
+            scene.prior_hm, scene.hm, (0.0, 30.0), None, None)
+
+
+def prepare_real(cfg: Config, device="cuda"):
+    """A DFC2019-format site -> the tuple of :func:`prepare_synthetic`.
+    Ingests the site (bounds cached as ``bounds_LLA[_Refined].npy``),
+    writes ``W2C_W2L_H.npy`` and the split, builds the ray table (cached by
+    its settings and split), resamples the lidar DSM onto the prior's grid
+    and computes the DSM prior: Space_Carve (swept on ``device``, cached as
+    ``SC_<site>_hm.npy``), LiDAR or None."""
+    if cfg.testing_image_names and not os.path.exists(cfg.testing_image_names):
+        # a mistyped path must not fall back to another split: that would
+        # train on the images meant to be held out
+        raise FileNotFoundError(
+            f"--testing_image_names {cfg.testing_image_names} not found")
+    gt_dir = os.path.join(cfg.root_dir, "Track3-Truth")
+    if not os.path.isdir(gt_dir):
+        gt_dir = None
+    h_override = tuple(cfg.height_range) if cfg.height_range else None
+    if gt_dir is None and h_override is None:
+        raise FileNotFoundError(
+            f"{cfg.root_dir}/Track3-Truth not found: the site height range "
+            "is derived from the lidar DSM. Either provide the Track3-Truth "
+            "directory or pass an explicit --height_range MIN_M MAX_M "
+            "(training then runs without GT evaluation).")
+    site = ingest.preprocess_site(
+        cfg.root_dir, cfg.site_name, cfg.rpc_dir, cfg.cache_dir,
+        gt_dir=gt_dir, height_range=h_override,
+        skip_bundle_adjust=cfg.skip_Bundle_Adjust,
+        camera_model=cfg.camera_model)
+    ingest.save_w2c_w2l(os.path.join(cfg.logs_dir, "W2C_W2L_H.npy"), site)
+    wc, S = ingest.world_transform(site)
+
+    t_file = cfg.testing_image_names or os.path.join(cfg.cache_dir,
+                                                      "Testing_Imgs.txt")
+    testing_names = None
+    if os.path.exists(t_file):
+        with open(t_file) as f:
+            testing_names = [l.strip() for l in f if l.strip()] or None
+    names = [c.name for c in site.cameras]
+    train_idx, test_idx = rays.train_test_split(
+        len(site.cameras), testing_size=cfg.testing_size,
+        testing_names=testing_names, names=names)
+    _write_split(cfg, names, train_idx, test_idx)
+
+    weights = (rays.camera_weights(site.cameras)
+               if cfg.weight_training_samples else None)
+    # the held-out cameras at their own downscale
+    held = set(test_idx.tolist())
+    downscales = [cfg.img_validation_downscale if i in held
+                  else cfg.img_training_downscale
+                  for i in range(len(site.cameras))]
+    table = rays.build_ray_table(
+        site.cameras, [c.image for c in site.cameras], downscales=downscales,
+        weights=weights, use_hsluv=cfg.use_HSLuv,
+        cache_path=rays.cache_path(cfg.cache_dir, cfg, downscales))
+
+    gt_dsm = None
+    if gt_dir is not None:
+        grid = space_carving.model_grid_from_bounds(site.bounds_lla)
+        gt_dsm = lidar.get_gt_dsm(gt_dir, cfg.site_name, grid[:2],
+                                  site.bounds_lla)
+    prior = None
+    if cfg.jump_start and cfg.DSM_Mode == "Space_Carve":
+        train_cams = [site.cameras[i] for i in train_idx]
+        prior = space_carving.space_carve_dsm(
+            train_cams, [c.image for c in train_cams],
+            bounds_lla=site.bounds_lla,
+            cache_path=os.path.join(cfg.cache_dir,
+                                    f"SC_{cfg.site_name}_hm.npy"),
+            device=device)
+    elif cfg.jump_start and cfg.DSM_Mode == "LiDAR":
+        prior = gt_dsm
+    return (site.cameras, table, list(train_idx), list(test_idx), prior,
+            gt_dsm, tuple(site.bounds_lla[2]), wc, S)
 
 
 def run_train(cfg: Config, train_steps: Optional[int] = None,
               device="cuda"):
-    """Prepare, train (resuming from the newest checkpoint of the log
-    directory when ``cfg.resume``), finalize -> the Trainer."""
+    """Prepare the site, train (resuming from the newest checkpoint of the
+    log directory when ``cfg.resume``), finalize -> the Trainer."""
+    from season_nerf_torch.geometry.units import sun_frame_from_site
     from season_nerf_torch.train.engine import Trainer
-    if not cfg.site_name.upper().startswith("SYNTH"):
-        raise NotImplementedError("the port trains synthetic sites (SYNTH*) "
-                                  "only: real-site ingest is not ported yet")
     cfg.resolve_dirs()
     cfg.save_json()
-    train_table, prior = prepare_synthetic(cfg)
-    trainer = Trainer(cfg, train_table, prior_hm=prior, device=device)
+    synth = cfg.site_name.upper().startswith("SYNTH")
+    prep = (prepare_synthetic(cfg) if synth
+            else prepare_real(cfg, device=device))
+    _, table, train_idx, _, prior, _, _, wc, S = prep
+    sun_frame = sun_frame_from_site(wc, S) if wc is not None else None
+    trainer = Trainer(cfg, table.split(np.array(train_idx)), prior_hm=prior,
+                      sun_frame=sun_frame, device=device)
     step_of = lambda p: int(re.search(r"Model_(\d+)\.nn$", p).group(1))
     ckpts = sorted(glob.glob(os.path.join(cfg.logs_dir, "Model_*.nn")),
                    key=step_of)
@@ -124,11 +221,52 @@ def run_train(cfg: Config, train_steps: Optional[int] = None,
     return trainer
 
 
+def setup_data(zip_dir: str, io_location: str, code_data_path=None):
+    """Unpack the DFC2019 Track-3 zips of ``zip_dir`` into
+    ``IEEE_Data/Images`` and the repository's ``Data.zip`` (cached RPCs and
+    region lists; searched in ``zip_dir``, ``code_data_path`` and the
+    repository root) into ``Cache/<site>/`` -> the images directory."""
+    img_out = os.path.join(io_location, "IEEE_Data", "Images")
+    os.makedirs(img_out, exist_ok=True)
+    zips = [os.path.join(zip_dir, f) for f in sorted(os.listdir(zip_dir))
+            if f.endswith(".zip")]
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for extra in (code_data_path, repo_root):
+        if not extra:
+            continue
+        dz = os.path.join(extra, "Data.zip")
+        if os.path.exists(dz) and dz not in zips and not any(
+                os.path.basename(z) == "Data.zip" for z in zips):
+            zips.append(dz)
+    for path in zips:
+        fname = os.path.basename(path)
+        with zipfile.ZipFile(path) as z:
+            for member in z.namelist():
+                base = os.path.basename(member)
+                if not base:
+                    continue
+                if fname == "Data.zip":
+                    parts = member.split("/")
+                    site = next((p for p in parts if "_" in p and
+                                 p[:3].isalpha()), None)
+                    dest_dir = os.path.join(io_location, "Cache",
+                                            site or "misc")
+                    os.makedirs(dest_dir, exist_ok=True)
+                    with z.open(member) as src, \
+                            open(os.path.join(dest_dir, base), "wb") as dst:
+                        dst.write(src.read())
+                elif base.endswith((".tif", ".IMD", ".txt")):
+                    with z.open(member) as src, \
+                            open(os.path.join(img_out, base), "wb") as dst:
+                        dst.write(src.read())
+    return img_out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m season_nerf_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
-    t = sub.add_parser("train", help="train a synthetic site, write a "
-                                     "model directory")
+    t = sub.add_parser("train", help="train a site, write a model "
+                                     "directory")
     add_config_flags(t)
     t.add_argument("--train_steps", type=int, default=None,
                    help="stop after this many steps (default: all)")
@@ -148,7 +286,16 @@ def main(argv=None):
     r.add_argument("--exact_shadow", action="store_true")
     r.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
+    d = sub.add_parser("setup_data", help="unpack the DFC2019 zips into "
+                                          "the site layout")
+    d.add_argument("--zip_dir", required=True)
+    d.add_argument("--IO_Location", required=True)
+    d.add_argument("--code_data_path", default=None)
     args = p.parse_args(argv)
+    if args.command == "setup_data":
+        print("images in", setup_data(args.zip_dir, args.IO_Location,
+                                      args.code_data_path))
+        return 0
     if args.command == "train":
         fields = {f.name for f in dataclasses.fields(Config)}
         cfg = Config(**{k: v for k, v in vars(args).items() if k in fields})

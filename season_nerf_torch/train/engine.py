@@ -21,8 +21,13 @@ are dispatched never changes the draws (the JAX package's draws depend on
 its ``scan_chunk``); a test passes its own source to replay another
 stream.
 
+With ``weight_training_samples`` the batch is drawn by inverse-CDF sampling
+over the rows' sample weights (:func:`weighted_indices`), as the JAX
+package's step does; the draws then hold the uniform ``u`` in place of the
+indices.
+
 Not ported yet: validation losses and renders at the save points, the
-``best_geometry`` selections, weighted ray sampling, hierarchical sampling.
+``best_geometry`` selections, hierarchical sampling.
 """
 
 from __future__ import annotations
@@ -59,17 +64,36 @@ def _alpha_cfg():
                        alpha_init=2.0, scale_lo=0.05, scale_init=0.5)
 
 
+def weight_cdf(weights: np.ndarray) -> Optional[np.ndarray]:
+    """The float32 CDF of the rows' sample weights (negative ones count as
+    0), or None where the weights are all equal and the draw stays
+    uniform."""
+    w = np.asarray(weights, np.float64)
+    if np.ptp(w) <= 1e-9:
+        return None
+    cdf = np.cumsum(np.maximum(w, 0.0))
+    return (cdf / cdf[-1]).astype(np.float32)
+
+
+def weighted_indices(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Row indices of the uniform draws ``u`` by the inverse CDF: the
+    left-side ``searchsorted``, clipped to the last row."""
+    return torch.searchsorted(cdf, u).clamp_(0, cdf.shape[0] - 1)
+
+
 class StepDraws:
     """Every random number of one training step from a generator on
-    ``device`` seeded by ``(seed, step)``: the batch indices, the camera
+    ``device`` seeded by ``(seed, step)``: the batch indices (or, with
+    ``weighted``, the uniform ``u`` of the inverse-CDF draw), the camera
     and solar jitter [R, S] and the solar rays' angles, starts and times
     (the names ``train/losses`` reads)."""
 
     def __init__(self, seed: int, n_rows: int, batch_size: int,
-                 n_samples: int, device="cuda"):
+                 n_samples: int, device="cuda", weighted: bool = False):
         self.seed, self.n_rows = seed, n_rows
         self.R, self.S = batch_size, n_samples
         self.device = torch.device(device)
+        self.weighted = weighted
 
     def __call__(self, step: int) -> Dict[str, torch.Tensor]:
         key = np.random.SeedSequence([self.seed, step]).generate_state(
@@ -79,8 +103,10 @@ class StepDraws:
         R, S, dev = self.R, self.S, self.device
         u = lambda *shape: torch.rand(shape, generator=g, device=dev)
         lo, hi = math.radians(1.0), math.radians(90.0)
-        return {"idx": torch.randint(0, self.n_rows, (R,), generator=g,
-                                     device=dev),
+        batch = ({"u": u(R)} if self.weighted else
+                 {"idx": torch.randint(0, self.n_rows, (R,), generator=g,
+                                       device=dev)})
+        return {**batch,
                 "jitter": u(R, S),
                 "solar_az": (u(R) * 2.0 - 1.0) * math.pi,
                 "solar_el": lo + u(R) * (hi - lo),
@@ -112,10 +138,6 @@ class Trainer:
                  sun_frame: Optional[np.ndarray] = None,
                  writer: Optional[MetricWriter] = None, device="cuda",
                  draws: Optional[Callable[[int], Dict]] = None):
-        if cfg.weight_training_samples:
-            raise NotImplementedError("weighted ray sampling "
-                                      "(weight_training_samples) is not "
-                                      "ported yet")
         if cfg.n_importance > 0:
             raise NotImplementedError("hierarchical sampling (n_importance "
                                       "> 0) is not ported yet")
@@ -133,9 +155,12 @@ class Trainer:
             np.asarray(a), dtype=torch.float32, device=self.device))
         self.prior_hm = as_dev(prior_hm)
         self.sun_frame = as_dev(sun_frame)
+        self.weight_cdf = as_dev(weight_cdf(train_table.rows[:, 18])
+                                 if cfg.weight_training_samples else None)
         self.draws = draws or StepDraws(cfg.seed, self.train_ds.n,
                                         cfg.batch_size, cfg.n_samples,
-                                        self.device)
+                                        self.device,
+                                        weighted=self.weight_cdf is not None)
         jump = cfg.jump_start and prior_hm is not None
         self.phases = phase_lib.build_phases(cfg.max_train_steps, jump)
         self.save_steps = set(phase_lib.save_points(
@@ -209,7 +234,9 @@ class Trainer:
         if self._phase is None or phase.index != self._phase.index:
             self._enter_phase(phase)
         d = self.draws(self.step)
-        batch = self.train_ds.batch(d["idx"])
+        idx = (d["idx"] if self.weight_cdf is None
+               else weighted_indices(self.weight_cdf, d["u"]))
+        batch = self.train_ds.batch(idx)
         self.optimizers.zero_grad()
         total, losses = season_nerf_loss(
             self.model, self.ada_params, self.statics, batch, d, self.step,

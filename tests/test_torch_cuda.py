@@ -2,7 +2,8 @@
 training trunk's forward and backward) against their plain versions, the
 bf16 GEMM inside K1/K2 against the f32 product, the wrappers' checks and
 launch counts, a render on the card against the same
-render on the CPU, and training steps on the card through K1/K2.
+render on the CPU, training steps on the card through K1/K2, and the
+space-carving sweep on the card against the CPU.
 
 Every test here needs a CUDA card and skips without one.  Run them on a
 machine with an H100, from the repository root:
@@ -17,9 +18,9 @@ import pytest
 import torch
 
 # the kernel tolerances, stated there
-from chip_smoke import (GEMM_REL_TOL, K1_REL_TOL, K2_REL_TOL, RENDER_TOL,
-                        TOL, gemm_case, gemm_rel_err, make_model,
-                        train_params)
+from chip_smoke import (CARVE_TOL, GEMM_REL_TOL, K1_REL_TOL, K2_REL_TOL,
+                        RENDER_TOL, SWEEP_TOL, TOL, carve_recovers_surface,
+                        gemm_case, gemm_rel_err, make_model, train_params)
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.ingest import save_world_artifact
 from season_nerf_torch.ops import fused_train as ftr
@@ -320,3 +321,18 @@ def test_trainer_steps_on_the_card_through_k1_and_k2(cuda):
     assert tr.statics.trunk_spec is not None
     assert (ftr.trunk_fwd.launches - before[0],
             ftr.trunk_bwd.launches - before[1]) == (4, 2)
+
+
+def test_plane_sweep_on_the_card_matches_the_cpu(cuda):
+    """The space-carving sweep (plain PyTorch on the device) against the
+    same function on the CPU; tolerance: chip_smoke.SWEEP_TOL.  The score
+    volume's graph cut then recovers the synthetic surface on the card."""
+    from season_nerf_torch.data.synthetic import make_scene
+    from season_nerf_torch.priors import space_carving as sc
+    scene = make_scene(n_views=4, img_size=64, grid=48, seed=2)
+    args = (scene.cameras, scene.images, (16, 16, 8))
+    card = sc.plane_sweep_scores(*args, patch=5, cell_chunk=100, device=cuda)
+    cpu = sc.plane_sweep_scores(*args, patch=5, cell_chunk=100, device="cpu")
+    assert card.shape == (16, 16, 8) and np.isfinite(card).all()
+    assert np.abs(card - cpu).max() <= SWEEP_TOL
+    assert carve_recovers_surface(cuda) < CARVE_TOL
