@@ -12,9 +12,10 @@ Phases, each fatal on failure:
    reports (registers, shared memory, spills);
 3. hold each kernel against its plain PyTorch version:
    - K3 at the shapes of the flagship render chunk (width 512, fc1..fc8 +
-     fc9, 5120 rays x 96 samples), at the exact-shadow chunk (5120 points)
-     and at a ragged row count, in bf16 and f32 with the polynomial and the
-     exact sine, with BatchNorm statistics that are not trivial;
+     fc9, 5120 rays x 96 samples), at the validation chunk (4096 rays x 96
+     samples), at the exact-shadow chunk (5120 points) and at a ragged row
+     count, in bf16 and f32 with the polynomial and the exact sine, with
+     BatchNorm statistics that are not trivial;
    - K1 and K2 at the flagship training shape (4096 rays x 96 samples,
      tile 2048, width 512, bf16, both sines), in f32 at a reduced row
      count, and at a 32-wide spec with tile 64 and a ragged tile count;
@@ -23,8 +24,9 @@ Phases, each fatal on failure:
      gradient, a weight gradient) against the f32 product;
    and time the flagship cases with CUDA events beside the kernel's bound
    and its plain version (the GEMMs beside ``torch.matmul``'s bf16 time),
-   and K3 in bf16 at the exact-shadow chunk also by its profiled device
-   time a launch (there the wrapper's host time may exceed the kernel's);
+   K3 in bf16 also at the validation chunk, and at the exact-shadow chunk
+   also by its profiled device time a launch (there the wrapper's host
+   time may exceed the kernel's);
 4. the serving main path: write a full-width model directory (``Config()``
    defaults, seeded random weights) with the port's own writer, load it
    onto the card, serve it over HTTP on an ephemeral localhost port and
@@ -44,17 +46,39 @@ Phases, each fatal on failure:
    a small bf16 model 3 steps on the CPU and on the card from the same
    weights and draws and compare step 0's gradient of every leaf and the
    losses;
-6. the real-site path: fabricate a DFC-format site from the seed (10
+6. the validation path: ``cli.run_train`` with the flagship training
+   config (``pallas_trunk``) on the synthetic site of ``bench.py``, 40
+   steps, 4 save points, ``final_model_selection="best_geometry"``: at each
+   save point the ``Testing`` losses and the validation report run the
+   model in eval mode through K3, and ``run_train`` ends in the report;
+   check finite ``Testing`` losses, ``Mean_PSNR``, ``Mean_Height_Error``
+   and ``Prior_Height_Error`` at every save point, K3's launches against
+   the chunking (2 for the losses and one per 4096-ray chunk of each
+   held-out image, per save point, plus the final report), K1/K2's (2 and
+   1 a step), that ``Final_Model.nn`` holds the save point of the lowest
+   logged ``Prior_Height_Error`` and its weights; then repeat one save
+   point's render on the CPU (plain versions) from its checkpoint; print
+   the seconds spent in validation and in training (at this size a
+   functional check, not the validation layer's metric: phase 7 gives
+   that);
+7. the real-site path: fabricate a DFC-format site from the seed (10
    GeoTIFFs of 2048 x 2048 px at 0.3 m with RPCs in tag 50844 and
    ``.ikono`` files, IMDs, a lidar DSM at 0.5 m with its UTM sidecar),
    ``cli.run_train`` on it with the flagship config (ingest, camera fits,
    the full-resolution ray table and its cache, the Space_Carve prior swept
    on the card at 2 x 2 x 0.25 m, the graph cut, one warm step through
-   K1/K2), 5 timed steps and ``render_pretrained`` of the model directory
-   through K3; check the launch counts, finite losses, the prior in [-1,
-   1], the world frame, the card's sweep against the CPU's on the site's
-   first 4 z-slices, and that the carve recovers a synthetic surface;
-7. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
+   K1/K2, ``finalize`` and the validation report of the three held-out
+   views at ``img_validation_downscale=8``), 5 timed steps, one step
+   through ``Trainer.run`` that ends in a save point (the ``Testing``
+   losses and the validation report, ``Mean_PSNR`` and
+   ``Mean_Height_Error`` against the lidar DSM, timed: the validation
+   layer's seconds per save point, projected onto the flagship schedule
+   as a share of the run) and ``render_pretrained`` of the model directory
+   through K3; check the launch counts, finite losses, the prior in
+   [-1, 1], the world frame, the card's sweep against the CPU's on the
+   site's first 4 z-slices, and that the carve recovers a synthetic
+   surface;
+8. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
    summed over the main paths), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -91,6 +115,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP_N = 5120 * 96          # points in one flagship render chunk
+VAL_N = 4096 * 96               # points in one validation render chunk
 SHADOW_N = 5120                 # points in one exact-shadow chunk
 RAGGED_N = 4133                 # not a multiple of any tile
 SEED = 0
@@ -244,7 +269,7 @@ def check_trunk(model, device) -> dict:
         for fast_sine in (True, False):
             name = (f"trunk_infer[{str(dtype).split('.')[-1]},"
                     f"{'fast_sin' if fast_sine else 'sinf'}]")
-            for n in (FLAGSHIP_N, SHADOW_N, RAGGED_N):
+            for n in (FLAGSHIP_N, VAL_N, SHADOW_N, RAGGED_N):
                 pts = torch.rand(n, 3, generator=gen, device=device) * 2 - 1
                 pe = ft.encode_points(pts).contiguous()
                 got = ft.trunk_apply(pe, folded, fast_sine)
@@ -269,7 +294,8 @@ def check_trunk(model, device) -> dict:
                     rec["bound_ms"] = (2.0 * macs * n / PEAK_BF16_FLOPS
                                        * 1e3)
                     rec["bound_by"] = "operations"
-                if n == FLAGSHIP_N:
+                if n == FLAGSHIP_N or (n == VAL_N
+                                       and dtype == torch.bfloat16):
                     reps = 10 if dtype == torch.bfloat16 else 3
                     rec["ms"] = cuda_ms(
                         lambda: ft.trunk_apply(pe, folded, fast_sine), reps)
@@ -1075,7 +1101,185 @@ def compare_grads(cpu: dict, card: dict) -> dict:
     return {"rel": rel, "bn_bias_noise": noise}
 
 
-# --- phase 6: the real-site path ----------------------------------------------
+# --- phase 6: the validation path ---------------------------------------------
+# cli.run_train on bench.py's synthetic site (bench.py:95-96) with the
+# flagship training config: VAL_STEPS steps with VAL_SAVES save points
+VAL_STEPS = 40
+VAL_SAVES = 4
+VAL_CHUNK = 4096                # rays a validation render chunk
+# A save point's render on the card (K3) against the CPU (plain versions):
+# the image is held to RENDER_TOL; the heights and the PSNR are printed, not
+# held: a flipped bf16 rounding moves a sample's density, and a pixel's
+# expected surface, a ratio of sums over its samples, can move further than
+# its color
+
+
+def read_metrics(logs_dir: str) -> dict:
+    """metrics.jsonl -> {tag: [(step, value), ...]} in the order written."""
+    out = {}
+    with open(os.path.join(logs_dir, "metrics.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            out.setdefault(r["tag"], []).append((r["step"], r["value"]))
+    return out
+
+
+def render_on(dev, cfg, tr, ckpt):
+    """The first held-out image rendered on ``dev`` by a Trainer resumed
+    from ``ckpt`` -> (image, heights, mask, PSNR)."""
+    from season_nerf_torch.ops.metrics import psnr
+    from season_nerf_torch.train.engine import Trainer
+    from season_nerf_torch.utils.logging import MetricWriter
+    other = Trainer(cfg, tr.train_ds.table, tr.val_table,
+                    prior_hm=tr._prior_np, gt_dsm=tr.gt_dsm,
+                    writer=MetricWriter(""), device=dev)
+    other.resume(ckpt)
+    rend, gt, height, seen = other.render_table_image(tr.val_table, 0)
+    p = float(psnr(torch.from_numpy(rend), torch.from_numpy(gt),
+                   mask=torch.from_numpy(seen)))
+    return rend, height, seen, p
+
+
+def validation_path(device, steps=VAL_STEPS, **model_kw) -> dict:
+    """The validation path through ``cli.run_train`` (see the module
+    docstring); ``model_kw`` shrinks the flagship config for a rehearsal.
+    The launch counts are set to 0 just before ``run_train`` and read just
+    after it."""
+    from season_nerf_torch import cli
+    from season_nerf_torch.config import get_opts
+    from season_nerf_torch.ops import fused_train as ftr, fused_trunk as ft
+    from season_nerf_torch.train import state as state_lib
+    from season_nerf_torch.train.engine import Trainer
+    report = {"steps": steps, "n_saves": VAL_SAVES}
+    rec = {}
+    with tempfile.TemporaryDirectory() as io_dir:
+        cfg = flagship_train_config(
+            site_name="SYNTH_VAL", exp_name="val", IO_Location=io_dir,
+            synth_views=6, synth_img_size=48, synth_grid=64, testing_size=1,
+            max_train_steps=steps, n_saves=VAL_SAVES,
+            final_model_selection="best_geometry", **model_kw)
+        cfg = get_opts([], defaults=cfg)
+        restore = [_timed(Trainer, name, rec)
+                   for name in ("run", "eval_losses", "validation_report")]
+        try:
+            ftr.trunk_fwd.launches = ftr.trunk_bwd.launches = 0
+            ft.trunk_apply.launches = 0
+            t0 = time.perf_counter()
+            tr = cli.run_train(cfg, device=device)
+            torch.cuda.synchronize()
+            report["run_train_s"] = time.perf_counter() - t0
+            k1, k2 = ftr.trunk_fwd.launches, ftr.trunk_bwd.launches
+            k3 = ft.trunk_apply.launches
+        finally:
+            for r in restore:
+                r()
+        saves = sorted(tr.save_steps)
+        n_saves = len(saves)
+        chunks = int(sum(-(-int(c) // VAL_CHUNK)
+                         for c in np.bincount(tr.val_table.img_ids)))
+        want_k3 = n_saves * (2 + chunks) + chunks
+        run_s = rec["run"][0]["s"]
+        losses_s = [r["s"] for r in rec["eval_losses"]]
+        report_s = [r["s"] for r in rec["validation_report"]]
+        in_run = sum(losses_s) + sum(report_s[:n_saves])
+        report.update(
+            save_steps=saves, val_rows=len(tr.val_table),
+            chunks_per_report=chunks, k1_launches=k1, k2_launches=k2,
+            k3_launches=k3, k3_launches_implied=want_k3, run_s=run_s,
+            eval_losses_s=losses_s, validation_report_s=report_s,
+            validation_in_run_s=in_run, training_s=run_s - in_run,
+            validation_per_save_point_s=in_run / n_saves,
+            validation_share_of_run=in_run / run_s)
+        log(f"  {steps} steps, save points {saves}; K1 launches {k1}, "
+            f"K2 {k2}, K3 {k3} (the chunking implies {want_k3}: "
+            f"{n_saves} x (2 + {chunks}) + {chunks})")
+        # a site this small says nothing of what validation costs a
+        # deployment: phase 7's save point measures that
+        log(f"  seconds at this size ({len(tr.val_table)} held-out rays; "
+            f"the validation layer's metric comes from the real-site "
+            f"phase): run_train {report['run_train_s']:.2f}, Trainer.run "
+            f"{run_s:.2f} = training {report['training_s']:.2f} + validation "
+            f"{in_run:.3f} ({100 * report['validation_share_of_run']:.1f} %; "
+            f"{report['validation_per_save_point_s']:.3f} a save point: "
+            f"losses {[round(x, 3) for x in losses_s]}, reports "
+            f"{[round(x, 3) for x in report_s]}, the last after finalize)")
+        if k1 != 2 * steps or k2 != steps:
+            fail(f"{steps} steps launched K1 {k1} and K2 {k2} times")
+        if k3 != want_k3:
+            fail(f"the validation path launched K3 {k3} times; the chunking "
+                 f"implies {want_k3}")
+
+        logged = read_metrics(cfg.logs_dir)
+        per_step = {}
+        for tag, vals in logged.items():
+            if tag.startswith("Testing/"):
+                for step, v in vals:
+                    per_step.setdefault(step, {}).setdefault(tag[8:], v)
+        need = ("Total", "Color", "Mean_PSNR", "Mean_Height_Error",
+                "Prior_Height_Error")
+        for step in saves:
+            got = per_step.get(step, {})
+            bad = [k for k in need if not np.isfinite(got.get(k, np.nan))]
+            bad += [k for k, v in got.items() if not np.isfinite(v)]
+            if bad:
+                fail(f"save point {step}: Testing values missing or not "
+                     f"finite: {bad} in {got}")
+        report["testing"] = {s_: per_step[s_] for s_ in saves}
+        for s_ in saves:
+            t = per_step[s_]
+            log(f"  save point {s_}: Testing/Total {t['Total']:.4f}, "
+                f"Color {t['Color']:.5f}, Mean_PSNR {t['Mean_PSNR']:.3f}, "
+                f"Mean_Height_Error {t['Mean_Height_Error']:.4f}, "
+                f"Prior_Height_Error {t['Prior_Height_Error']:.4f}")
+
+        # the selection: the save point of the lowest logged score
+        prior_err = {s_: per_step[s_]["Prior_Height_Error"] for s_ in saves}
+        best = min(saves, key=lambda s_: prior_err[s_])
+        final = os.path.join(cfg.logs_dir, "Final_Model.nn")
+        sd, meta = state_lib.load_model_artifact(final)
+        ckpt = os.path.join(cfg.logs_dir, f"Model_{best}.nn")
+        ck = state_lib.load_checkpoint(ckpt)["model"]
+        same = all(torch.equal(v, ck[k].to(v.dtype)) for k, v in sd.items())
+        report.update(selected_step=meta.get("selected_step"),
+                      argmin_step=best, final_equals_checkpoint=same)
+        log(f"  Final_Model.nn: selected step {meta.get('selected_step')} "
+            f"(argmin of the logged Prior_Height_Error {best}), its weights "
+            f"equal Model_{best}.nn's: {same}")
+        if meta.get("selected_step") != best or not same:
+            fail(f"finalize chose {meta}, the logged scores {prior_err}")
+
+        # one save point on the card and on the CPU from its checkpoint
+        last = os.path.join(cfg.logs_dir, f"Model_{saves[-1]}.nn")
+        t0 = time.perf_counter()
+        card = render_on(device, cfg, tr, last)
+        report["card_render_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = render_on("cpu", cfg, tr, last)
+        report["cpu_render_s"] = time.perf_counter() - t0
+        seen = cpu[2]
+        img_err = float(np.abs(card[0] - cpu[0])[seen].max())
+        h_err = np.abs(card[1] - cpu[1])[seen]
+        report["card_vs_cpu"] = {
+            "step": saves[-1], "pixels": int(seen.sum()),
+            "image_max_abs": img_err, "tol": RENDER_TOL,
+            "height_max_abs": float(h_err.max()),
+            "height_mean_abs": float(h_err.mean()),
+            "psnr_card": card[3], "psnr_cpu": cpu[3]}
+        log(f"  save point {saves[-1]} rendered on the card and on the CPU "
+            f"(plain versions) from its checkpoint: image max abs difference "
+            f"{img_err:.3e} (tol {RENDER_TOL}), heights max "
+            f"{float(h_err.max()):.3e} mean {float(h_err.mean()):.3e}, PSNR "
+            f"{card[3]:.4f} against {cpu[3]:.4f}; the CPU took "
+            f"{report['cpu_render_s']:.1f} s")
+        if not np.array_equal(card[2], seen) or not img_err <= RENDER_TOL \
+                or not np.isfinite(card[1][seen]).all():
+            fail("the card's validation render disagrees with the CPU's")
+        del tr
+    torch.cuda.empty_cache()
+    return report
+
+
+# --- phase 7: the real-site path ----------------------------------------------
 # A DFC2019-format site fabricated from SEED: SITE_VIEWS GeoTIFFs of
 # SITE_PX^2 px at SITE_GSD m a pixel, affine RPCs (parallax by each view's
 # off-nadir angle) fitted as in tests/conftest.py::_toy_rpc, IMDs, and a
@@ -1093,6 +1297,7 @@ DSM_GSD = 0.5
 M_PER_DEG_LAT = 111_000.0
 SITE_STEPS = 5                      # timed steps after run_train's warm one
 SITE_RENDER_PX = 64
+SITE_VAL_DOWN = 8                   # the held-out views' downscale (lite)
 # The card's sweep against the CPU's (both this port) over the site's
 # first 4 z-slices: the same f32 arithmetic in other orders (FMA
 # contraction in the projection and the bilinear weights); a pixel
@@ -1358,14 +1563,20 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
     """The real-site main path: fabricate a DFC-format site, then
     ``cli.run_train`` on it (ingest, camera fits, bounds, the ray table
     with its cache, the lidar DSM, the Space_Carve prior swept on the card,
-    one warm step of the flagship config through K1/K2, ``finalize``),
-    ``steps`` more timed steps, ``finalize`` again and ``render_pretrained``
-    of the written model directory through K3.  The launch counts are set
-    to 0 just before ``run_train`` and read just after the render."""
+    one warm step of the flagship config through K1/K2, ``finalize`` and
+    the validation report), ``steps`` more timed steps, one more step
+    through ``Trainer.run`` that ends in a save point (the ``Testing``
+    losses, the validation report of the held-out views, the checkpoint),
+    ``finalize`` again and ``render_pretrained`` of the written model
+    directory through K3.  The launch counts are set to 0 just before
+    ``run_train`` and read just after the render."""
     from season_nerf_torch import cli
+    from season_nerf_torch.config import Config, get_opts
     from season_nerf_torch.data import ingest, lidar, rays
     from season_nerf_torch.ops import fused_train as ftr, fused_trunk as ft
     from season_nerf_torch.priors import graph_cut, space_carving as sc
+    from season_nerf_torch.train import phases as phase_lib
+    from season_nerf_torch.train.engine import Trainer
     report = {"views": views, "px": px}
     rec = {}
     with tempfile.TemporaryDirectory() as io_dir:
@@ -1377,12 +1588,17 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
             f"{report['fabricate_s']:.1f} s")
         cfg = flagship_train_config(site_name=SITE_NAME, exp_name="site",
                                     IO_Location=io_dir, DSM_Mode="Space_Carve",
-                                    img_training_downscale=1, **model_kw)
+                                    img_training_downscale=1,
+                                    img_validation_downscale=SITE_VAL_DOWN,
+                                    **model_kw)
+        cfg = get_opts([], defaults=cfg)
         restore = [_timed(ingest, "preprocess_site", rec),
                    _timed(rays, "build_ray_table", rec),
                    _timed(rays.RayTable, "save", rec),
                    _timed(sc, "plane_sweep_scores", rec, cuda_events=True),
                    _timed(graph_cut, "aexpansion_grid", rec)]
+        restore += [_timed(Trainer, name, rec) for name in
+                    ("eval_losses", "validation_report", "save_checkpoint")]
         try:
             ftr.trunk_fwd.launches = ftr.trunk_bwd.launches = 0
             ft.trunk_apply.launches = 0
@@ -1397,6 +1613,13 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
                 losses.append(tr.train_step())
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
+            # a save point in the run: the next step is one
+            save_step = tr.step + 1
+            tr.save_steps.add(save_step)
+            t0 = time.perf_counter()
+            tr.run(n_steps=1)
+            torch.cuda.synchronize()
+            report["save_step_s"] = time.perf_counter() - t0
             tr.finalize()
             t0 = time.perf_counter()
             shown, _ = cli.render_pretrained(
@@ -1457,7 +1680,7 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
             f"K1 launches {k1}, K2 launches {k2}, peak memory "
             f"{report['peak_mem_gb']:.2f} GB; Total "
             f"{report['last_loss']['Total']:.4f}")
-        n_steps = steps + 1
+        n_steps = steps + 2
         if tr.statics.trunk_spec is None:
             fail("the real-site run did not take the fused trunk")
         if k1 != 2 * n_steps or k2 != n_steps:
@@ -1470,16 +1693,85 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
                  f"{report['prior_range']}")
         if wc is None or S is None:
             fail("the real site's W2C_W2L_H.npy has no world frame")
-        want_k3 = -(-SITE_RENDER_PX * SITE_RENDER_PX // cfg.chunk)
+        val_chunks = int(sum(-(-int(c) // VAL_CHUNK)
+                             for c in np.bincount(tr.val_table.img_ids)))
+        # run_train's report, then the save point's losses (2) and report
+        want_k3 = (-(-SITE_RENDER_PX * SITE_RENDER_PX // cfg.chunk)
+                   + 2 * val_chunks + 2)
         if k3 != want_k3 or shown.shape != (SITE_RENDER_PX, SITE_RENDER_PX,
                                             3) \
                 or not np.isfinite(shown).all():
-            fail(f"render_pretrained of the real site: K3 launches {k3} "
-                 f"(the chunking implies {want_k3}), shape {shown.shape}, "
-                 f"finite {np.isfinite(shown).all()}")
+            fail(f"render_pretrained, the validation report and the save "
+                 f"point of the real site: K3 launches {k3} (the chunking "
+                 f"implies {want_k3}), shape {shown.shape}, finite "
+                 f"{np.isfinite(shown).all()}")
         log(f"  render_pretrained of the model directory at "
-            f"{SITE_RENDER_PX} px: K3 launches {k3}, mean "
-            f"{float(shown.mean()):.4f}, {report['render_s']:.2f} s")
+            f"{SITE_RENDER_PX} px: mean {float(shown.mean()):.4f}, "
+            f"{report['render_s']:.2f} s; K3 launches {k3} with two "
+            f"validation reports ({val_chunks} chunks each) and the save "
+            f"point's 2 loss passes")
+
+        # the save point at full size: the metric of the validation layer
+        testing = {tag[8:]: v for tag, vals in read_metrics(cfg.logs_dir)
+                   .items() if tag.startswith("Testing/")
+                   for st, v in vals if st == save_step}
+        val = rec["validation_report"][-1]["out"]
+        losses_s = rec["eval_losses"][-1]["s"]
+        report_s = rec["validation_report"][-1]["s"]
+        ckpt_s = rec["save_checkpoint"][-1]["s"]
+        val_s = losses_s + report_s
+        val_rows = len(tr.val_table)
+        # projected onto the flagship schedule (Config(): max_train_steps
+        # steps, its n_saves split over the phases): training at this
+        # run's step time, every save point at this one's validation
+        # seconds, and at img_validation_downscale=1, linear in the rays
+        dep = Config()
+        n_dep = len(phase_lib.save_points(tr.phases, dep.n_saves,
+                                          dep.max_train_steps))
+        train_dep_s = dep.max_train_steps * secs / steps
+        full_s = losses_s + report_s * SITE_VAL_DOWN ** 2
+        report.update(
+            val_rows=val_rows, val_chunks=val_chunks, save_step=save_step,
+            validation=val, testing=testing,
+            save_point={"eval_losses_s": losses_s,
+                        "validation_report_s": report_s,
+                        "checkpoint_s": ckpt_s,
+                        "validation_s": val_s,
+                        "report_rays_per_s": val_rows / report_s},
+            flagship_schedule={
+                "max_train_steps": dep.max_train_steps,
+                "save_points": n_dep, "training_s": train_dep_s,
+                "validation_share": n_dep * val_s
+                / (train_dep_s + n_dep * val_s),
+                "downscale_1_save_point_s": full_s,
+                "downscale_1_validation_share": n_dep * full_s
+                / (train_dep_s + n_dep * full_s)})
+        fs = report["flagship_schedule"]
+        log(f"  save point at step {save_step} on the "
+            f"{len(tr.val_table.img_names)} held-out views at "
+            f"1/{SITE_VAL_DOWN} ({val_rows} rays, {val_chunks} K3 chunks): "
+            f"Testing losses {losses_s:.3f} s + validation report "
+            f"{report_s:.3f} s ({val_rows / report_s:.0f} rays/s) = "
+            f"{val_s:.3f} s, checkpoint {ckpt_s:.3f} s; the step with its "
+            f"save point {report['save_step_s']:.2f} s")
+        log(f"  Testing/Total {testing.get('Total', float('nan')):.4f}, "
+            f"Mean_PSNR {val.get('Mean_PSNR', float('nan')):.3f}, "
+            f"Mean_Height_Error against the lidar DSM "
+            f"{val.get('Mean_Height_Error', float('nan')):.4f} "
+            f"({val.get('Mean_Height_Error', float('nan')) * to_m:.2f} m), "
+            f"Prior_Height_Error "
+            f"{val.get('Prior_Height_Error', float('nan')):.4f}")
+        log(f"  projected onto the flagship schedule ({dep.max_train_steps} "
+            f"steps at {report['step_ms']:.1f} ms, {n_dep} save points): "
+            f"validation {100 * fs['validation_share']:.2f} % of the run at "
+            f"1/{SITE_VAL_DOWN}; at 1/1 (linear in the rays) "
+            f"{full_s:.1f} s a save point, "
+            f"{100 * fs['downscale_1_validation_share']:.1f} %")
+        need = ("Total", "Mean_PSNR", "Mean_Height_Error",
+                "Prior_Height_Error")
+        if not all(np.isfinite(testing.get(k, np.nan)) for k in need) \
+                or not all(np.isfinite(v) for v in testing.values()):
+            fail(f"the real site's save point logged {testing}")
 
         # the card's sweep against the CPU's on the site's first 4 slices
         cams, images, grid = sweep["args"][:3]
@@ -1563,6 +1855,10 @@ def main():
     log("main path: training the flagship config through K1 and K2")
     training = train_path(device)
 
+    log(f"main path: validation at the save points, cli.run_train on the "
+        f"synthetic site ({VAL_STEPS} steps, {VAL_SAVES} save points)")
+    validation = validation_path(device)
+
     log(f"main path: the real-site path, cli.run_train on a fabricated "
         f"DFC-format site ({SITE_VIEWS} views of {SITE_PX} px)")
     real_site = real_site_path(device)
@@ -1573,7 +1869,8 @@ def main():
         "route": "cuda",
         "source": "season_nerf_torch/csrc/trunk_infer.cu",
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
-        "launches": serving["k3_launches"] + real_site["k3_launches"],
+        "launches": (serving["k3_launches"] + validation["k3_launches"]
+                     + real_site["k3_launches"]),
         "max_abs_err": max(r["max_abs_err"]
                            for r in trunk["trunk_infer[bfloat16,fast_sin]"]),
         "ms": flagship["ms"],
@@ -1584,10 +1881,10 @@ def main():
     }]
     tk = train_kernels["flagship,bf16,fast_sin"]
     for key, name, line, launches in (
-            ("k1", ftr.FWD_KERNEL, 238,
-             training["k1_launches"] + real_site["k1_launches"]),
-            ("k2", ftr.BWD_KERNEL, 273,
-             training["k2_launches"] + real_site["k2_launches"])):
+            ("k1", ftr.FWD_KERNEL, 238, training["k1_launches"]
+             + validation["k1_launches"] + real_site["k1_launches"]),
+            ("k2", ftr.BWD_KERNEL, 273, training["k2_launches"]
+             + validation["k2_launches"] + real_site["k2_launches"])):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1607,7 +1904,8 @@ def main():
                    "cuda": torch.version.cuda, "ptxas": ptxas,
                    "trunk": trunk, "serving": serving,
                    "train_kernels": train_kernels, "gemms": gemms,
-                   "training": training, "real_site": real_site,
+                   "training": training, "validation": validation,
+                   "real_site": real_site,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -3,6 +3,7 @@
     python -m season_nerf_torch.cli train --site_name OMA_281 \
         --exp_name run --IO_Location DIR [any Config field as --flag] \
         [--train_steps N] [--device cuda]
+    python -m season_nerf_torch.cli lite [the flags of train]
     python -m season_nerf_torch.cli render --Model_Location DIR \
         --VA 70 30 --SA 45 180 --tf 07/19 [--Output_Size 256 | H W S] \
         [--Save_Name out.png] [--exact_shadow] [--device cuda]
@@ -11,14 +12,19 @@
 
 ``train`` is the training half of ``main.py`` (the JAX package's
 ``run_test``): prepare the site, train (resuming from the newest
-``Model_<step>.nn`` of the log directory), and write ``Final_Model.nn``,
-``opts.json``, ``W2C_W2L_H.npy`` and the split files, a model directory
-that ``render`` and the service load.  A site named ``SYNTH*`` is the
+``Model_<step>.nn`` of the log directory under the settings recorded in
+its opts.json), validate at every save point, and write
+``Final_Model.nn`` (the last step's or the selected save point's
+weights), ``opts.json``, ``W2C_W2L_H.npy`` and the split files, a model
+directory that ``render`` and the service load; then the validation
+report of the trained model.  ``lite`` is ``train`` over
+``lite_defaults()`` (``main_lite.py``).  A site named ``SYNTH*`` is the
 built-in synthetic scene; any other is a DFC2019-format site under
 ``IO_Location`` (``IEEE_Data/Images/*_RGB.tif``, ``Cache/<site>/`` with the
 ``.ikono`` RPCs and ``RPCs/*.IMD``, ``IEEE_Data/Track3-Truth/<site>_DSM.{tif,
 txt}``): ingest, camera fits, ray table, the DSM prior (space carving swept
-on the training device) and training.  The eval suite is not ported yet.
+on the training device) and training.  The evaluation suite after training
+(``analyze_model``, ``regional_eval``) is not ported yet.
 ``render`` is the port of ``main_run_Season_NeRF.py``: a novel view of a
 model directory (season-adjusted composite times the shadow adjustment),
 written as PNG.  ``setup_data`` is ``main_setup_data.py``: unpack the
@@ -29,7 +35,6 @@ is ``python -m season_nerf_torch.render.serving``.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import glob
 import os
 import re
@@ -39,7 +44,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from season_nerf_torch.config import Config, add_config_flags
+from season_nerf_torch.config import (Config, add_config_flags, get_opts,
+                                      lite_defaults)
 from season_nerf_torch.data import ingest, lidar, rays
 from season_nerf_torch.priors import space_carving
 from season_nerf_torch.geometry.time_enc import year_frac_from_month_day
@@ -195,18 +201,21 @@ def prepare_real(cfg: Config, device="cuda"):
 def run_train(cfg: Config, train_steps: Optional[int] = None,
               device="cuda"):
     """Prepare the site, train (resuming from the newest checkpoint of the
-    log directory when ``cfg.resume``), finalize -> the Trainer."""
+    log directory when ``cfg.resume``; a finished run skips to the end),
+    finalize and write the validation report -> the Trainer.  ``cfg`` is
+    what :func:`get_opts` returns: its directories resolved, a resumed
+    run's recorded settings adopted and opts.json written."""
     from season_nerf_torch.geometry.units import sun_frame_from_site
     from season_nerf_torch.train.engine import Trainer
-    cfg.resolve_dirs()
-    cfg.save_json()
     synth = cfg.site_name.upper().startswith("SYNTH")
     prep = (prepare_synthetic(cfg) if synth
             else prepare_real(cfg, device=device))
-    _, table, train_idx, _, prior, _, _, wc, S = prep
+    _, table, train_idx, test_idx, prior, gt_dsm, _, wc, S = prep
     sun_frame = sun_frame_from_site(wc, S) if wc is not None else None
-    trainer = Trainer(cfg, table.split(np.array(train_idx)), prior_hm=prior,
-                      sun_frame=sun_frame, device=device)
+    val_table = table.split(np.array(test_idx)) if test_idx else None
+    trainer = Trainer(cfg, table.split(np.array(train_idx)), val_table,
+                      prior_hm=prior, gt_dsm=gt_dsm, sun_frame=sun_frame,
+                      device=device)
     step_of = lambda p: int(re.search(r"Model_(\d+)\.nn$", p).group(1))
     ckpts = sorted(glob.glob(os.path.join(cfg.logs_dir, "Model_*.nn")),
                    key=step_of)
@@ -216,8 +225,9 @@ def run_train(cfg: Config, train_steps: Optional[int] = None,
     if trainer.step < cfg.max_train_steps:
         trainer.run(n_steps=train_steps)
     else:
-        print("training already complete")
+        print("training already complete; skipping to the validation report")
     trainer.finalize()
+    trainer.validation_report()
     return trainer
 
 
@@ -262,16 +272,25 @@ def setup_data(zip_dir: str, io_location: str, code_data_path=None):
     return img_out
 
 
+def _add_run_flags(parser):
+    """The flags of ``train`` and ``lite`` that are not Config fields."""
+    parser.add_argument("--train_steps", type=int, default=None,
+                        help="stop after this many steps (default: all)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (default cuda)")
+    return parser
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser(prog="python -m season_nerf_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
-    t = sub.add_parser("train", help="train a site, write a model "
-                                     "directory")
-    add_config_flags(t)
-    t.add_argument("--train_steps", type=int, default=None,
-                   help="stop after this many steps (default: all)")
-    t.add_argument("--device", default="cuda",
-                   help="torch device to train on (default cuda)")
+    for name, defaults, what in (
+            ("train", None, "train a site, write a model directory"),
+            ("lite", lite_defaults(), "train with the quick defaults "
+                                      "(5000 steps, downscaled images)")):
+        t = sub.add_parser(name, help=what)
+        _add_run_flags(add_config_flags(t, defaults))
     r = sub.add_parser("render", help="render a novel view of a model dir")
     r.add_argument("--Model_Location", required=True)
     r.add_argument("--VA", nargs=2, type=float, default=[70.0, 0.0],
@@ -296,9 +315,12 @@ def main(argv=None):
         print("images in", setup_data(args.zip_dir, args.IO_Location,
                                       args.code_data_path))
         return 0
-    if args.command == "train":
-        fields = {f.name for f in dataclasses.fields(Config)}
-        cfg = Config(**{k: v for k, v in vars(args).items() if k in fields})
+    if args.command in ("train", "lite"):
+        # the Config flags go through get_opts, as the JAX package's do
+        _, rest = _add_run_flags(argparse.ArgumentParser(
+            allow_abbrev=False)).parse_known_args(argv[1:])
+        cfg = get_opts(rest, lite_defaults() if args.command == "lite"
+                       else None)
         trainer = run_train(cfg, args.train_steps, device=args.device)
         print("trained", trainer.step, "steps; model directory",
               cfg.logs_dir)

@@ -13,8 +13,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import json
 import os
+import re
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -108,6 +111,51 @@ class Config:
             json.dump(dataclasses.asdict(self), fout, indent=2)
         return path
 
+    # Fields a resumed run keeps from its recorded opts.json: they set the
+    # architecture, arithmetic, ray table, losses or schedule of the
+    # training trajectory.  max_train_steps is absent (extending a run is
+    # legitimate), and so is seed.
+    _RESUME_CRITICAL = (
+        "compute_dtype", "fast_sine", "fc_units", "fc_layers",
+        "number_low_frequency_cases", "n_samples", "n_importance",
+        "use_HSLuv", "Use_MSE_loss", "Use_Solar", "Solar_Type_2",
+        "sc_lambda", "ds_lambda", "p_lambda", "lr", "lr_alpha_scale",
+        "phase4_prior_keepalive", "phase4_keepalive_barron", "pallas_trunk",
+        "batch_size", "n_saves", "jump_start", "DSM_Mode",
+        "weight_training_samples", "img_training_downscale",
+        "img_validation_downscale", "testing_size", "site_name",
+        "camera_model", "skip_Bundle_Adjust",
+    )
+
+    def adopt_resume_settings(self):
+        """Where the log directory holds checkpoints of an earlier run (a
+        ``Model_<step>.nn`` past step 0), its recorded opts.json wins for
+        every field of :attr:`_RESUME_CRITICAL`, with a warning naming
+        each, so that the run finishes as it began and the opts.json
+        written next still describes it.  ``resume=False`` (``--no-resume``)
+        keeps the new settings.  Call it before :meth:`save_json`."""
+        path = os.path.join(self.logs_dir, "opts.json") if self.logs_dir \
+            else ""
+        if not self.resume or not path or not os.path.exists(path):
+            return self
+        steps = [int(re.search(r"Model_(\d+)", p).group(1)) for p in
+                 glob.glob(os.path.join(self.logs_dir, "Model_*.nn"))]
+        if not steps or max(steps) == 0:
+            return self
+        saved = type(self).load_json(path)
+        changed = []
+        for name in self._RESUME_CRITICAL:
+            old, new = getattr(saved, name), getattr(self, name)
+            if old != new:
+                setattr(self, name, old)
+                changed.append(f"  {name}: {new!r} -> {old!r}")
+        if changed:
+            warnings.warn(
+                "resuming an existing run: its recorded opts.json wins for "
+                "trajectory-critical settings (pass --no-resume to retrain "
+                "under the new values):\n" + "\n".join(changed))
+        return self
+
     # Keys whose class default changed after model directories already
     # existed: an opts.json without one predates the knob and gets the
     # behaviour it was trained under, not today's default.
@@ -139,7 +187,7 @@ def add_config_flags(parser: argparse.ArgumentParser,
             group.add_argument("--no-" + f.name, dest=f.name,
                                action="store_false")
         elif f.name == "height_range":
-            parser.add_argument(flag, type=float, nargs=2, default=None,
+            parser.add_argument(flag, type=float, nargs=2, default=default,
                                 metavar=("MIN_M", "MAX_M"))
         elif default is None:
             typ = int if "int" in str(f.type) else str
@@ -147,3 +195,69 @@ def add_config_flags(parser: argparse.ArgumentParser,
         else:
             parser.add_argument(flag, type=type(default), default=default)
     return parser
+
+
+def apply_overrides(cfg: Config, pairs):
+    """Apply ``KEY=VALUE`` strings to ``cfg``, coerced by the field's
+    declared type: booleans take true/false/1/0/yes/no/on/off (any case),
+    ``none`` clears only an Optional field, an unknown name or a bad value
+    raises ValueError."""
+    fields = {f.name: f for f in dataclasses.fields(type(cfg))}
+    for kv in pairs:
+        key, _, val = kv.partition("=")
+        if not _ or key not in fields:
+            raise ValueError(f"unknown config override {kv!r} "
+                             f"(expect KEY=VALUE with a Config field name)")
+        cur = getattr(cfg, key)
+        ann = str(fields[key].type)
+        if isinstance(cur, bool) or ann == "bool":
+            low = val.strip().lower()
+            if low in ("1", "true", "yes", "on"):
+                coerced = True
+            elif low in ("0", "false", "no", "off"):
+                coerced = False
+            else:
+                raise ValueError(f"boolean field {key} got {val!r}")
+        elif val.strip().lower() == "none":
+            if "Optional" not in ann and "None" not in ann:
+                raise ValueError(
+                    f"config field {key} is not Optional; cannot set it "
+                    f"to None (got {kv!r})")
+            coerced = None
+        elif isinstance(cur, int):
+            coerced = int(val)
+        elif isinstance(cur, float):
+            coerced = float(val)
+        elif cur is None:
+            coerced = (int(val) if "int" in ann
+                       else float(val) if "float" in ann else val)
+        else:
+            coerced = type(cur)(val)
+        setattr(cfg, key, coerced)
+    return cfg
+
+
+def get_opts(argv=None, defaults: Optional[Config] = None,
+             **overrides) -> Config:
+    """Command line -> Config: parse ``argv`` (every field a flag, over
+    ``defaults``), set ``overrides``, derive the directories, let a resumed
+    run's recorded settings win (:meth:`Config.adopt_resume_settings`),
+    then write opts.json, in that order."""
+    parser = argparse.ArgumentParser()
+    add_config_flags(parser, defaults)
+    cfg = Config(**vars(parser.parse_args(argv)))
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    cfg.resolve_dirs()
+    cfg.adopt_resume_settings()
+    cfg.save_json()
+    return cfg
+
+
+def lite_defaults() -> Config:
+    """The quick-train defaults of the ``lite`` entry point: 5000 steps,
+    the learning rate x3, 10 saves, training and validation images
+    downscaled 4x and 8x."""
+    return Config(exp_name="OMA_281_Lite", site_name="OMA_281",
+                  max_train_steps=5000, lr=3 * 10 ** -4.86, n_saves=10,
+                  img_training_downscale=4, img_validation_downscale=8)

@@ -84,8 +84,14 @@ class GNeRF(nn.Module):
         self.fc_sky_color_2 = Dense(lw4, 3, dtype)
         self._fused = None
 
-    # the folded trunk follows the weights: dropped on a device/dtype move
-    # and on load_state_dict, rebuilt on the next eval forward
+    # the folded trunk follows the weights: dropped on a device/dtype move,
+    # on load_state_dict and on every train()/eval() (an optimizer updates
+    # the weights in place between two evaluations), rebuilt on the next
+    # eval forward
+    def train(self, mode: bool = True):
+        self._fused = None
+        return super().train(mode)
+
     def _apply(self, fn, *args, **kwargs):
         self._fused = None
         return super()._apply(fn, *args, **kwargs)

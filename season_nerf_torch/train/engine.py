@@ -26,12 +26,26 @@ over the rows' sample weights (:func:`weighted_indices`), as the JAX
 package's step does; the draws then hold the uniform ``u`` in place of the
 indices.
 
-Not ported yet: validation losses and renders at the save points, the
-``best_geometry`` selections, hierarchical sampling.
+Validation, as the JAX package's ``Trainer`` does it: at every save point
+the ``Testing`` losses on a batch of the validation table and, unless
+``save_point_val_renders`` is 0, :meth:`Trainer.validation_report` (every
+held-out image rendered, masked PSNR, the expected surface's height error
+against the lidar DSM and against the prior), then the checkpoint.  Both
+run the model in eval mode, that is through the folded inference trunk
+(K3 on the card), with the running statistics that the training steps
+left, which they do not update.  Their draws (the batch and the solar
+rays) come from ``val_draws(step)``, a stream of their own
+(:class:`ValDraws`), so validation never moves a training draw.
+``finalize`` ships the last step's weights or, with
+``final_model_selection="best_geometry[_on_decay]"``, the save point whose
+renders scored the lowest height error against the prior.
+
+Not ported yet: hierarchical sampling.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import warnings
@@ -42,9 +56,10 @@ import torch
 
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.dataset import DeviceRayDataset
-from season_nerf_torch.data.rays import RayTable
+from season_nerf_torch.data.rays import RayTable, decode_batch
 from season_nerf_torch.models.tnerf import TNeRF, model_from_config
-from season_nerf_torch.ops import robust_loss
+from season_nerf_torch.ops import rendering, robust_loss
+from season_nerf_torch.ops.metrics import psnr as psnr_metric
 from season_nerf_torch.ops.robust_loss import AdaptiveCfg
 from season_nerf_torch.train import phases as phase_lib
 from season_nerf_torch.train import state as state_lib
@@ -81,6 +96,24 @@ def weighted_indices(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.searchsorted(cdf, u).clamp_(0, cdf.shape[0] - 1)
 
 
+def _generator(entropy, device) -> torch.Generator:
+    """A generator on ``device`` seeded by the entropy list."""
+    key = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
+    g = torch.Generator(device=device)
+    g.manual_seed(int(key))
+    return g
+
+
+def _solar_draws(g, n: int, device) -> Dict[str, torch.Tensor]:
+    """The solar rays' angles, starts and times of ``n`` rays."""
+    u = lambda *shape: torch.rand(shape, generator=g, device=device)
+    lo, hi = math.radians(1.0), math.radians(90.0)
+    return {"solar_az": (u(n) * 2.0 - 1.0) * math.pi,
+            "solar_el": lo + u(n) * (hi - lo),
+            "solar_xy": u(n, 2) * 2.0 - 1.0,
+            "solar_t": u(n, 2) * (2.0 * math.pi)}
+
+
 class StepDraws:
     """Every random number of one training step from a generator on
     ``device`` seeded by ``(seed, step)``: the batch indices (or, with
@@ -96,23 +129,36 @@ class StepDraws:
         self.weighted = weighted
 
     def __call__(self, step: int) -> Dict[str, torch.Tensor]:
-        key = np.random.SeedSequence([self.seed, step]).generate_state(
-            1, np.uint64)[0]
-        g = torch.Generator(device=self.device)
-        g.manual_seed(int(key))
+        g = _generator([self.seed, step], self.device)
         R, S, dev = self.R, self.S, self.device
         u = lambda *shape: torch.rand(shape, generator=g, device=dev)
-        lo, hi = math.radians(1.0), math.radians(90.0)
         batch = ({"u": u(R)} if self.weighted else
                  {"idx": torch.randint(0, self.n_rows, (R,), generator=g,
                                        device=dev)})
-        return {**batch,
-                "jitter": u(R, S),
-                "solar_az": (u(R) * 2.0 - 1.0) * math.pi,
-                "solar_el": lo + u(R) * (hi - lo),
-                "solar_xy": u(R, 2) * 2.0 - 1.0,
-                "solar_t": u(R, 2) * (2.0 * math.pi),
+        jitter = u(R, S)
+        solar = _solar_draws(g, R, dev)
+        return {**batch, "jitter": jitter, **solar,
                 "solar_jitter": u(R, S)}
+
+
+class ValDraws:
+    """The draws of the ``Testing`` losses at the save point ``step``: the
+    indices of ``batch_size`` validation rows and their solar rays, from a
+    generator seeded by ``(seed, step, VAL_STREAM)``, a stream apart from
+    :class:`StepDraws`'.  Eval mode samples without jitter."""
+
+    VAL_STREAM = 1
+
+    def __init__(self, seed: int, n_rows: int, batch_size: int,
+                 device="cuda"):
+        self.seed, self.n_rows, self.R = seed, n_rows, batch_size
+        self.device = torch.device(device)
+
+    def __call__(self, step: int) -> Dict[str, torch.Tensor]:
+        g = _generator([self.seed, step, self.VAL_STREAM], self.device)
+        idx = torch.randint(0, self.n_rows, (self.R,), generator=g,
+                            device=self.device)
+        return {"idx": idx, **_solar_draws(g, self.R, self.device)}
 
 
 def fused_trunk_spec(model, rows: int, device):
@@ -134,10 +180,13 @@ def fused_trunk_spec(model, rows: int, device):
 
 class Trainer:
     def __init__(self, cfg: Config, train_table: RayTable,
+                 val_table: Optional[RayTable] = None,
                  prior_hm: Optional[np.ndarray] = None,
+                 gt_dsm: Optional[np.ndarray] = None,
                  sun_frame: Optional[np.ndarray] = None,
                  writer: Optional[MetricWriter] = None, device="cuda",
-                 draws: Optional[Callable[[int], Dict]] = None):
+                 draws: Optional[Callable[[int], Dict]] = None,
+                 val_draws: Optional[Callable[[int], Dict]] = None):
         if cfg.n_importance > 0:
             raise NotImplementedError("hierarchical sampling (n_importance "
                                       "> 0) is not ported yet")
@@ -155,6 +204,19 @@ class Trainer:
             np.asarray(a), dtype=torch.float32, device=self.device))
         self.prior_hm = as_dev(prior_hm)
         self.sun_frame = as_dev(sun_frame)
+        # validation stays on the host: a chunk at a time goes to the device
+        self.val_table = val_table
+        self.gt_dsm = gt_dsm
+        self._prior_np = None if prior_hm is None else np.asarray(prior_hm)
+        # (step, height error against the prior) per save point: what the
+        # best_geometry selections choose from (the prior is training data,
+        # so nothing of the ground truth leaks into the choice)
+        self._save_geometry = []
+        if val_draws is None and val_table is not None:
+            val_draws = ValDraws(cfg.seed, len(val_table),
+                                 min(cfg.batch_size, len(val_table)),
+                                 self.device)
+        self.val_draws = val_draws
         self.weight_cdf = as_dev(weight_cdf(train_table.rows[:, 18])
                                  if cfg.weight_training_samples else None)
         self.draws = draws or StepDraws(cfg.seed, self.train_ds.n,
@@ -265,28 +327,47 @@ class Trainer:
 
     # --- checkpoints ---------------------------------------------------------
     def _ckpt_extra(self):
+        # the save-point scores travel with the checkpoint, so that a
+        # resumed run selects among every save point, not only the later
         return {"step": self.step,
                 "carry_alpha": self._carry_alpha,
-                "carry_scale": self._carry_scale}
+                "carry_scale": self._carry_scale,
+                "save_geometry": [[int(s), float(m)]
+                                  for s, m in self._save_geometry]}
 
     def save_checkpoint(self, path: str):
         state_lib.save_checkpoint(path, self.model, self.ada_params,
                                   self.optimizers, extra=self._ckpt_extra())
 
     def _on_save_point(self):
-        if self.cfg.logs_dir:
-            self.save_checkpoint(os.path.join(self.cfg.logs_dir,
+        """The ``Testing`` losses, the validation report (the images
+        capped at ``save_point_val_renders`` when it is positive, none when
+        it is 0), then the checkpoint."""
+        cfg = self.cfg
+        if self.val_table is not None and len(self.val_table) > 0:
+            self.writer.scalars("Testing", self.eval_losses(), self.step)
+        if cfg.save_point_val_renders:
+            rep = self.validation_report(
+                max_images=max(cfg.save_point_val_renders, 0) or None)
+            if "Prior_Height_Error" in rep:
+                self._save_geometry.append(
+                    (self.step, rep["Prior_Height_Error"]))
+        if cfg.logs_dir:
+            self.save_checkpoint(os.path.join(cfg.logs_dir,
                                               f"Model_{self.step}.nn"))
         self.writer.flush()
 
     def resume(self, ckpt_path: str):
         """Restore the whole training state (weights, running statistics,
-        both optimizers, latents, step and carried values) and continue."""
+        both optimizers, latents, step, carried values and the save-point
+        scores) and continue."""
         ck = state_lib.load_checkpoint(ckpt_path)
         extra = ck["extra"]
         self.step = int(extra.get("step", 0))
         self._carry_alpha = float(extra.get("carry_alpha", 2.0))
         self._carry_scale = float(extra.get("carry_scale", 0.03))
+        self._save_geometry = [(int(s), float(m))
+                               for s, m in extra.get("save_geometry", [])]
         self._phase = None
         self.model.load_state_dict(ck["model"])
         self._enter_phase(phase_lib.phase_at(self.phases,
@@ -299,18 +380,176 @@ class Trainer:
         return self
 
     def finalize(self):
-        """Write ``Final_Model.nn`` (the last step's weights)."""
+        """Write ``Final_Model.nn``: the last step's weights or, with
+        ``final_model_selection`` ``"best_geometry"``, the save point of
+        the lowest height error against the prior; with
+        ``"best_geometry_on_decay"`` that save point only where the last
+        one's error exceeds it by more than ``geometry_decay_threshold``
+        (relative), else the last step's.  The selection and its scores
+        go into the artifact's meta."""
         cfg = self.cfg
-        if cfg.final_model_selection != "last":
-            warnings.warn(f"final_model_selection="
-                          f"{cfg.final_model_selection!r} is not ported yet: "
-                          f"writing the last step's weights")
+        sd, steps = self.model.state_dict(), self.step
         meta = {"fc_units": cfg.fc_units,
-                "n_classes": cfg.number_low_frequency_cases,
-                "steps": self.step}
+                "n_classes": cfg.number_low_frequency_cases}
+        mode = cfg.final_model_selection
+        if mode in ("best_geometry", "best_geometry_on_decay"):
+            if not self._save_geometry:
+                warnings.warn(
+                    f"final_model_selection={mode!r} requested but no "
+                    "save-point geometry scores exist (needs a DSM prior, "
+                    "and save_point_val_renders must not be 0); falling "
+                    "back to the last-step weights")
+            else:
+                best_step, best_mae = min(self._save_geometry,
+                                          key=lambda sm: sm[1])
+                if mode == "best_geometry_on_decay":
+                    last_mae = self._save_geometry[-1][1]
+                    drift = (last_mae - best_mae) / max(best_mae, 1e-9)
+                    meta.update(geometry_drift=float(drift),
+                                decay_threshold=cfg.geometry_decay_threshold)
+                    if drift <= cfg.geometry_decay_threshold:
+                        print(f"[finalize] best_geometry_on_decay: drift "
+                              f"{drift:.1%} <= threshold "
+                              f"{cfg.geometry_decay_threshold:.0%}: keeping "
+                              f"the last-step weights")
+                        # the last save point's score taken as the last
+                        # step's, as the JAX package does (ROADMAP Queue 3)
+                        best_step, best_mae = self.step, last_mae
+                meta.update(selection=mode, selected_step=int(best_step),
+                            prior_height_mae=float(best_mae))
+                if best_step != self.step and cfg.logs_dir:
+                    sd = state_lib.load_checkpoint(os.path.join(
+                        cfg.logs_dir, f"Model_{best_step}.nn"))["model"]
+                    steps = best_step
+                print(f"[finalize] best_geometry selected step {best_step} "
+                      f"(prior-DSM MAE {best_mae:.4f}; last step "
+                      f"{self.step})")
+        meta["steps"] = steps
         if cfg.logs_dir:
-            sd = {k: v for k, v in self.model.state_dict().items()
+            sd = {k: v for k, v in sd.items()
                   if k.split(".")[0] not in TNeRF.UNUSED_HEADS}
             state_lib.save_model_artifact(
                 os.path.join(cfg.logs_dir, "Final_Model.nn"), sd, meta=meta)
         self.writer.flush()
+
+    # --- validation ------------------------------------------------------------
+    @contextlib.contextmanager
+    def _eval_mode(self):
+        """The model in eval mode (a fresh fold of the trunk, the running
+        statistics read and never updated) without autograd; the mode it
+        had afterwards."""
+        was = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                yield
+        finally:
+            self.model.train(was)
+
+    def eval_losses(self) -> Dict[str, float]:
+        """The phase's Season-NeRF loss in eval mode on a batch of the
+        validation table drawn by ``val_draws(step)`` -> the loss values
+        and ``Total``."""
+        d = self.val_draws(self.step)
+        rows = self.val_table.rows[d["idx"].cpu().numpy()]
+        batch = decode_batch(torch.as_tensor(rows, device=self.device))
+        with self._eval_mode():
+            total, losses = season_nerf_loss(
+                self.model, self.ada_params, self.statics, batch, d,
+                self.step, prior_hm=self.prior_hm, sun_frame=self.sun_frame)
+        scalars = {k: float(v) for k, (v, _) in losses.items()}
+        scalars["Total"] = float(total)
+        return scalars
+
+    def render_table_image(self, table: RayTable, img_index: int,
+                           chunk: Optional[int] = None):
+        """Render one image of ``table`` from its rays in eval mode, in
+        chunks of ``min(chunk or cfg.chunk, 4096)`` rays (the last at its
+        own size) -> (rendered [H, W, 3], gt [H, W, 3], expected-surface
+        height [H, W] (NaN where no ray), mask [H, W])."""
+        cfg = self.cfg
+        if cfg.use_HSLuv:
+            raise NotImplementedError("HSLuv ray colors are not ported yet")
+        chunk = min(chunk or cfg.chunk, 4096)
+        rows = table.rows[table.img_ids == img_index]
+        H, W = table.img_sizes[img_index]
+        cols, zs = [], []
+        with self._eval_mode():
+            for s in range(0, rows.shape[0], chunk):
+                b = decode_batch(torch.as_tensor(rows[s:s + chunk],
+                                                 device=self.device))
+                out = rendering.eval_rays(
+                    self.model, b["top"], b["bot"], b["sun"], b["t4"],
+                    n_samples=cfg.n_samples, classic_solar=cfg.Solar_Type_2)
+                surf, _ = rendering.expected_surface(out["ps"], out["pts"],
+                                                     out["deltas"])
+                cols.append(out["rendered"])
+                zs.append(surf[:, 2])
+                heartbeat.beat()
+        rend = np.zeros((H, W, 3), np.float32)
+        gt = np.zeros((H, W, 3), np.float32)
+        height = np.full((H, W), np.nan, np.float32)
+        seen = np.zeros((H, W), bool)
+        if cols:
+            ij = rows[:, 0:2].astype(int)
+            rend[ij[:, 0], ij[:, 1]] = torch.cat(cols).float().cpu().numpy()
+            gt[ij[:, 0], ij[:, 1]] = rows[:, 19:22]
+            height[ij[:, 0], ij[:, 1]] = torch.cat(zs).float().cpu().numpy()
+            seen[ij[:, 0], ij[:, 1]] = True
+        return rend, gt, height, seen
+
+    def validation_report(self, step: Optional[int] = None,
+                          max_images: Optional[int] = None):
+        """Render the validation images (the first ``max_images``, or all)
+        and log them, their mean masked PSNR (``Mean_PSNR``) and mean
+        height errors against the ground-truth DSM
+        (``Mean_Height_Error``) and against the prior
+        (``Prior_Height_Error``) under ``Testing`` -> those means."""
+        if self.val_table is None:
+            return {}
+        step = step if step is not None else self.step
+        n_imgs = len(self.val_table.img_names)
+        if max_images is not None:
+            n_imgs = min(n_imgs, max_images)
+        psnrs, maes, prior_maes = [], [], []
+        for i in range(n_imgs):
+            rend, gt, height, seen = self.render_table_image(self.val_table,
+                                                             i)
+            psnrs.append(float(psnr_metric(torch.from_numpy(rend),
+                                           torch.from_numpy(gt),
+                                           mask=torch.from_numpy(seen))))
+            self.writer.image(f"Testing/render_{i}", rend, step)
+            h_img = (np.nan_to_num(height, nan=-1.0) + 1.0) / 2.0
+            self.writer.image(f"Testing/height_{i}",
+                              np.repeat(h_img[..., None], 3, -1), step)
+            for ref, out in ((self.gt_dsm, maes),
+                             (self._prior_np, prior_maes)):
+                if ref is not None:
+                    mae = _height_mae(height, ref, self.val_table, i)
+                    if mae is not None:
+                        out.append(mae)
+        report = {"Mean_PSNR": float(np.mean(psnrs))}
+        if maes:
+            report["Mean_Height_Error"] = float(np.mean(maes))
+        if prior_maes:
+            report["Prior_Height_Error"] = float(np.mean(prior_maes))
+        self.writer.scalars("Testing", report, step)
+        return report
+
+
+def _height_mae(height, dsm, table: RayTable, img_index: int):
+    """Mean |expected-surface height - the DSM| over the image's rays, the
+    DSM sampled at the ray's midpoint footprint (nearest cell) -> None
+    where no pixel has both."""
+    rows = table.rows[table.img_ids == img_index]
+    ij = rows[:, 0:2].astype(int)
+    mid = (rows[:, 2:5] + rows[:, 5:8]) / 2
+    g = dsm.shape
+    xi = np.clip(((mid[:, 0] + 1) / 2 * (g[0] - 1)).astype(int), 0, g[0] - 1)
+    yi = np.clip(((mid[:, 1] + 1) / 2 * (g[1] - 1)).astype(int), 0, g[1] - 1)
+    ref = dsm[xi, yi]
+    pred = height[ij[:, 0], ij[:, 1]]
+    ok = np.isfinite(ref) & np.isfinite(pred)
+    if not ok.any():
+        return None
+    return float(np.mean(np.abs(pred[ok] - ref[ok])))

@@ -24,7 +24,10 @@ package writes ``stop_gradient``.
 Randomness comes in through ``draws`` (see :func:`make_solar_rays` and
 ``train/engine.StepDraws``): the camera-pass jitter ``jitter`` [R, S], the
 solar rays' ``solar_az``, ``solar_el`` [R], ``solar_xy`` [R, 2],
-``solar_t`` [R, 2] and the solar-pass jitter ``solar_jitter`` [R, S].
+``solar_t`` [R, 2] and the solar-pass jitter ``solar_jitter`` [R, S].  A
+model in eval mode (the save-point ``Testing`` losses) samples without
+jitter, so its draws hold only the solar rays'
+(``train/engine.ValDraws``).
 """
 
 from __future__ import annotations
@@ -83,11 +86,13 @@ def season_nerf_loss(model, ada_params, statics: LossStatics, batch, draws,
     model_trust = min(step / s.phase_len, 1.0) if s.use_prior else 1.0
     prior = prior_hm if s.use_prior else None
     spec = s.trunk_spec if model.training else None
+    jitter = draws["jitter"] if model.training else None
+    solar_jitter = draws["solar_jitter"] if model.training else None
 
     out = rendering.eval_rays(
         model, batch["top"], batch["bot"], batch["sun"], batch["t4"],
         n_samples=s.n_samples, classic_solar=s.classic_solar,
-        jitter=draws["jitter"], prior_hm=prior, model_trust=model_trust,
+        jitter=jitter, prior_hm=prior, model_trust=model_trust,
         trunk_spec=spec)
 
     losses: Dict[str, Tuple[torch.Tensor, object]] = {}
@@ -100,7 +105,7 @@ def season_nerf_loss(model, ada_params, statics: LossStatics, batch, draws,
             draws["solar_t"], sun_frame)
         sol = rendering.eval_rho_only(
             model, tops_s, bots_s, sun_s, n_samples=s.n_samples,
-            jitter=draws["solar_jitter"], prior_hm=prior,
+            jitter=solar_jitter, prior_hm=prior,
             model_trust=model_trust, trunk_spec=spec)
         vis_s = sol["vis"][..., 0]
         pv_exact = sol["pv_exact"][..., 0].detach()

@@ -2,7 +2,9 @@
 
 The JSON half of ``season_nerf_tpu/utils/logging.py``'s ``MetricWriter``,
 with the same tags (``Training/<name>``, ``Testing/<name>``) and record
-keys.  An empty ``logdir`` makes a writer that writes nothing.
+keys.  An empty ``logdir`` makes a writer that writes nothing.  The
+TensorBoard half is not ported yet, so :meth:`MetricWriter.image`, which
+writes only there, writes nothing.
 """
 
 from __future__ import annotations
@@ -31,6 +33,11 @@ class MetricWriter:
     def scalars(self, prefix: str, values: Dict[str, float], step: int):
         for k, v in values.items():
             self.scalar(f"{prefix}/{k}", v, step)
+
+    def image(self, tag: str, img, step: int):
+        """img: [H, W, C] float in [0, 1] or [H, W].  The JAX package
+        writes images only to TensorBoard, which the port does not write
+        yet: nothing is written."""
 
     def flush(self):
         if self._jsonl is not None:

@@ -2,7 +2,8 @@
 training trunk's forward and backward) against their plain versions, the
 bf16 GEMM inside K1/K2 against the f32 product, the wrappers' checks and
 launch counts, a render on the card against the same
-render on the CPU, training steps on the card through K1/K2, and the
+render on the CPU, training steps on the card through K1/K2, a save
+point's validation on the card (K3) against the CPU, and the
 space-carving sweep on the card against the CPU.
 
 Every test here needs a CUDA card and skips without one.  Run them on a
@@ -18,8 +19,9 @@ import pytest
 import torch
 
 # the kernel tolerances, stated there
-from chip_smoke import (CARVE_TOL, GEMM_REL_TOL, K1_REL_TOL, K2_REL_TOL,
-                        RENDER_TOL, SWEEP_TOL, TOL, carve_recovers_surface,
+from chip_smoke import (CARVE_TOL, CPU_CARD_ATOL, CPU_CARD_RTOL,
+                        GEMM_REL_TOL, K1_REL_TOL, K2_REL_TOL, RENDER_TOL,
+                        SWEEP_TOL, TOL, VAL_CHUNK, carve_recovers_surface,
                         gemm_case, gemm_rel_err, make_model, train_params)
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.ingest import save_world_artifact
@@ -321,6 +323,57 @@ def test_trainer_steps_on_the_card_through_k1_and_k2(cuda):
     assert tr.statics.trunk_spec is not None
     assert (ftr.trunk_fwd.launches - before[0],
             ftr.trunk_bwd.launches - before[1]) == (4, 2)
+
+
+def test_save_point_validation_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A save point's ``Testing`` losses, validation render and report on
+    the card (K3) against the CPU (plain versions), both resumed from the
+    save point's checkpoint, with the same validation draws.  Tolerances:
+    the losses as chip_smoke.CPU_CARD_RTOL/ATOL hold the training losses
+    (the same bf16 arithmetic in other orders), the image
+    chip_smoke.RENDER_TOL, the report's PSNR 1e-2 relative and its height
+    errors RENDER_TOL (means over the image)."""
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    from season_nerf_torch.train.engine import Trainer, ValDraws
+    from season_nerf_torch.utils.logging import MetricWriter
+    scene = make_scene(n_views=4, img_size=24, grid=32, seed=1)
+    table, val = scene_ray_tables(scene, testing_size=1)
+    cfg = Config(fc_units=256, batch_size=64, n_samples=32, max_train_steps=4,
+                 n_saves=1, pallas_trunk=True, logs_dir=str(tmp_path))
+    tr = Trainer(cfg, table, val, prior_hm=scene.prior_hm, gt_dsm=scene.hm)
+    before = ft.trunk_apply.launches
+    tr.run()
+    assert sorted(tr.save_steps) == [4]
+    assert ft.trunk_apply.launches - before == 2 + -(-len(val) // VAL_CHUNK)
+    assert tr.model.training
+    draws = ValDraws(cfg.seed, len(val), min(cfg.batch_size, len(val)),
+                     device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        other = Trainer(cfg, table, val, prior_hm=scene.prior_hm,
+                        gt_dsm=scene.hm, writer=MetricWriter(""), device=dev,
+                        val_draws=lambda s, dev=dev: {
+                            k: v.to(dev) for k, v in draws(s).items()})
+        other.resume(str(tmp_path / "Model_4.nn"))
+        out[str(dev)] = (other.eval_losses(),
+                         other.render_table_image(val, 0),
+                         other.validation_report())
+    (l_cpu, r_cpu, v_cpu), (l_card, r_card, v_card) = out["cpu"], \
+        out[str(cuda)]
+    assert set(l_cpu) == set(l_card)
+    for k, want in l_cpu.items():
+        assert abs(l_card[k] - want) <= CPU_CARD_ATOL + CPU_CARD_RTOL * abs(
+            want), (k, l_card[k], want)
+    seen = r_cpu[3]
+    assert np.array_equal(r_card[3], seen) and seen.sum() > 100
+    assert np.abs(r_card[0] - r_cpu[0])[seen].max() <= RENDER_TOL
+    assert np.isfinite(r_card[2][seen]).all()
+    assert set(v_card) == set(v_cpu) == {"Mean_PSNR", "Mean_Height_Error",
+                                         "Prior_Height_Error"}
+    assert abs(v_card["Mean_PSNR"] - v_cpu["Mean_PSNR"]) <= 1e-2 * abs(
+        v_cpu["Mean_PSNR"])
+    for k in ("Mean_Height_Error", "Prior_Height_Error"):
+        assert abs(v_card[k] - v_cpu[k]) <= RENDER_TOL, k
 
 
 def test_plane_sweep_on_the_card_matches_the_cpu(cuda):
