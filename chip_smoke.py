@@ -78,9 +78,25 @@ Phases, each fatal on failure:
    [-1, 1], the world frame, the card's sweep against the CPU's on the
    site's first 4 z-slices, and that the carve recovers a synthetic
    surface;
+   then evaluate the trained model directory at the JAX defaults
+   (``analyze_model`` + ``write_analysis_outputs``: the 3 held-out views at
+   256 x 256, 17 walk frames at 128 px, the density surface on the lidar
+   DSM's grid) under the profiler: seconds by part, the device's busy
+   share, K3's launches against the chunking, finite scores and every
+   file of ``Output/``;
 8. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
    summed over the main paths), then, as the last line,
    ``{"ok": true, "device": {...}}``.
+
+Between 6 and 7, the evaluation path: ``cli.run_test`` on the synthetic
+site of phase 6 (8 steps, 2 save points, ``best_geometry``, then
+``Analysis.pickle`` and ``Output/`` at the JAX defaults) and
+``run_test(eval_only=True)`` on its directory, K3's launches against the
+chunking; then the model's analysis on the card and on the CPU (plain
+versions) at a small size: the image scores, the height scores, the
+aligned time and the height shift held against each other.  Before
+phase 2, the host's scipy, cv2, imageio, tabulate, matplotlib and PIL
+are looked up (``importlib.util.find_spec``); scipy must be there.
 
 Exits non-zero, without the last line, when no CUDA device is visible or the
 port is not beside this script.  Every measurement also goes, as JSON, to
@@ -1279,6 +1295,242 @@ def validation_path(device, steps=VAL_STEPS, **model_kw) -> dict:
     return report
 
 
+# --- the evaluation after training: cli.run_test, analyze_model -------------
+# Phase 6 drives cli.run_test (training EVAL_STEPS flagship steps with
+# EVAL_SAVES save points and best_geometry, then the evaluation at the JAX
+# defaults) and run_test(eval_only=True) at EVAL_ONLY_SIZE, then repeats the
+# model's analysis on the card and on the CPU (plain versions) at CPU_EVAL,
+# the ground-truth height map taken every CPU_EVAL_HM_STRIDE-th cell (the
+# CPU's plain bf16 trunk runs some 10^4 points a second at width 512).
+EVAL_STEPS = 8
+EVAL_SAVES = 2
+EVAL_ONLY_SIZE = (16, 16)
+CPU_EVAL = dict(img_size=(12, 12), walk_size=6)
+CPU_EVAL_HM_STRIDE = 5
+# Card (K3, the batched scorers on the device) against CPU (plain
+# versions) on the same weights and inputs: the image scores (L2, PSNR,
+# SSIM, EM) within ANALYSIS_SCORE_RTOL of max(1, |CPU value|), the height
+# scores (MAE, RMSE, median) within ANALYSIS_HM_TOL_M meters.  Both run the
+# same bf16 arithmetic in other orders (K3 against its plain version: x_enc
+# within TOL), which moves a render by ~1e-3 (RENDER_TOL's measured
+# 1.05e-3) and a column's expected height by about as much of the range.
+# Where the two choose another alignment (the seasonal candidate or the
+# height shift), the scores that follow the choice are not held and the
+# runner-up gap that explains it is printed.
+ANALYSIS_SCORE_RTOL = 5e-3
+ANALYSIS_HM_TOL_M = 1e-3
+OUTPUT_FILES = ("Height_Maps.png", "HM_scores.txt", "Image_scores.txt",
+                "Time_Walk.gif", "Solar_Walk.gif")
+CHUNK_COLS = 4096                   # density_surface's columns a K3 call
+
+
+def analysis_k3_launches(cams, test_idx, img_size, walk_size, hm_shape,
+                         chunk) -> int:
+    """K3 launches ``analyze_model`` implies: one per ``chunk`` rays that
+    ``camera_grid_rays`` keeps of each test view, one per ``chunk`` rays of
+    each walk frame, one per CHUNK_COLS columns of the height map."""
+    from season_nerf_torch.eval.walks import get_walking_points
+    from season_nerf_torch.render.renderer import camera_grid_rays
+    views = sum(-(-camera_grid_rays(cams[i], img_size)[0].shape[0]
+                  // chunk) for i in test_idx)
+    _, sun, times = get_walking_points(cams, 3, 5, 12, min_day_sep=0)
+    walks = (len(sun) + len(times)) * -(-walk_size * walk_size // chunk)
+    cols = -(-int(np.prod(hm_shape)) // CHUNK_COLS) if hm_shape else 0
+    return views + walks + cols
+
+
+def analysis_problems(analysis, out_dir, test_names) -> list:
+    """What is wrong with an analysis and its ``Output/``: non-finite
+    scores, missing files."""
+    bad = []
+    for part in ("Before", "After"):
+        for k, v in analysis.get("HM", {}).get(part, {}).items():
+            if k != "Shift_x_y_deg" and not np.isfinite(v):
+                bad.append(f"HM {part} {k} = {v}")
+    for name, e in analysis["Images"].items():
+        for variant, scores in e["Scores"].items():
+            if not np.all(np.isfinite(scores)):
+                bad.append(f"{name} {variant} = {scores}")
+    for imgs in (analysis["Solar_Walk"], analysis["Season_Walk"]["imgs"]):
+        if not all(np.isfinite(im).all() for im in imgs):
+            bad.append("a walk frame is not finite")
+    need = set(OUTPUT_FILES) | {f"{n}_comparison.png" for n in test_names}
+    bad += [f"Output/ lacks {f}"
+            for f in sorted(need - set(os.listdir(out_dir)))]
+    return bad
+
+
+def compare_analyses(card, cpu, card_align, cpu_align) -> dict:
+    """The card's analysis against the CPU's (see ANALYSIS_SCORE_RTOL)
+    -> {"worst": largest differences, "problems": what exceeds them,
+    "notes": differing choices and their runner-up gaps}."""
+    worst = {"image_score_rel": 0.0, "hm_m": 0.0}
+    problems, notes = [], []
+    b_card, b_cpu = card["HM"]["After"], cpu["HM"]["After"]
+    same_shift = b_card["Shift_x_y_deg"] == b_cpu["Shift_x_y_deg"]
+    if not same_shift:
+        notes.append(f"height alignment: card {b_card['Shift_x_y_deg']} "
+                     f"(RMSE {b_card['RMSE']:.5f} m), CPU "
+                     f"{b_cpu['Shift_x_y_deg']} (RMSE {b_cpu['RMSE']:.5f} m)"
+                     f"; before alignment RMSE "
+                     f"{card['HM']['Before']['RMSE']:.5f} against "
+                     f"{cpu['HM']['Before']['RMSE']:.5f} m")
+    for part in ("Before",) + (("After",) if same_shift else ()):
+        for k in ("MAE", "RMSE", "Median"):
+            d = abs(card["HM"][part][k] - cpu["HM"][part][k])
+            worst["hm_m"] = max(worst["hm_m"], d)
+            if not d <= ANALYSIS_HM_TOL_M:
+                problems.append(f"HM {part} {k}: {card['HM'][part][k]} "
+                                f"against {cpu['HM'][part][k]}")
+        worst[f"acc_1_m_{part}"] = abs(card["HM"][part]["Acc_1_m"]
+                                       - cpu["HM"][part]["Acc_1_m"])
+    for i, (name, e_cpu) in enumerate(cpu["Images"].items()):
+        e_card = card["Images"][name]
+        t_card, t_cpu = e_card["Aligned_Vals"][2], e_cpu["Aligned_Vals"][2]
+        same_t = t_card == t_cpu
+        if not same_t:
+            gaps = []
+            for who, rec in (("card", card_align[i]), ("CPU", cpu_align[i])):
+                err = np.sort(rec["out"][2])
+                gaps.append(f"{who} runner-up {(err[1] - err[0]) / err[0]:.3e}"
+                            f" relative")
+            notes.append(f"{name}: aligned time {t_card:.4f} on the card, "
+                         f"{t_cpu:.4f} on the CPU; " + ", ".join(gaps))
+        for variant, s_cpu in e_cpu["Scores"].items():
+            if variant.startswith("Aligned") and not same_t:
+                continue
+            for m, a, b in zip(("L2", "PSNR", "SSIM", "EM"),
+                               e_card["Scores"][variant], s_cpu):
+                rel = abs(a - b) / max(1.0, abs(b))
+                worst["image_score_rel"] = max(worst["image_score_rel"], rel)
+                if not rel <= ANALYSIS_SCORE_RTOL:
+                    problems.append(f"{name} {variant} {m}: {a} against {b}")
+    return {"worst": worst, "problems": problems, "notes": notes}
+
+
+def evaluation_path(device, steps=EVAL_STEPS, cpu_eval=CPU_EVAL,
+                    eval_size=None, **model_kw) -> dict:
+    """``cli.run_test`` end to end (``eval_size`` its ``eval_img_size``,
+    None the JAX defaults) and with ``eval_only`` on the synthetic site of
+    ``bench.py``, then the model's analysis on the card against the CPU
+    (see the constants above).  The launch counts are set to 0 just
+    before each ``run_test`` and read just after it."""
+    from season_nerf_torch import cli
+    from season_nerf_torch.config import get_opts
+    from season_nerf_torch.eval import img_eval, regional
+    from season_nerf_torch.ops import fused_train as ftr, fused_trunk as ft
+    from season_nerf_torch.render.loading import load_model_dir
+    from season_nerf_torch.render.renderer import Renderer
+    from season_nerf_torch.train import state as state_lib
+    report = {"steps": steps, "n_saves": EVAL_SAVES}
+    with tempfile.TemporaryDirectory() as io_dir:
+        cfg = flagship_train_config(
+            site_name="SYNTH_VAL", exp_name="test", IO_Location=io_dir,
+            synth_views=6, synth_img_size=48, synth_grid=64, testing_size=1,
+            max_train_steps=steps, n_saves=EVAL_SAVES,
+            final_model_selection="best_geometry", **model_kw)
+        cfg = get_opts([], defaults=cfg)
+        cams, table, _, test_idx, _, gt, h_range, _, _ = \
+            cli.prepare_synthetic(cfg)
+        names = [cams[i].name for i in test_idx]
+        out_dir = os.path.join(cfg.logs_dir, "Output")
+
+        ftr.trunk_fwd.launches = ftr.trunk_bwd.launches = 0
+        ft.trunk_apply.launches = 0
+        t0 = time.perf_counter()
+        tr, analysis = cli.run_test(cfg, eval_img_size=eval_size,
+                                    device=device)
+        torch.cuda.synchronize()
+        report["run_test_s"] = time.perf_counter() - t0
+        k1, k2 = ftr.trunk_fwd.launches, ftr.trunk_bwd.launches
+        k3 = ft.trunk_apply.launches
+        n_saves = len(tr.save_steps)
+        chunks = int(sum(-(-int(c) // VAL_CHUNK)
+                         for c in np.bincount(tr.val_table.img_ids)))
+        img, walk = ((256, 256), 128) if eval_size is None else (
+            tuple(eval_size), eval_size[0])
+        want_k3 = (n_saves * (2 + chunks) + chunks + analysis_k3_launches(
+            cams, test_idx, img, walk, gt.shape, cfg.chunk))
+        report.update(k1_launches=k1, k2_launches=k2, k3_train_and_eval=k3,
+                      k3_implied=want_k3)
+        log(f"  cli.run_test ({steps} steps, save points "
+            f"{sorted(tr.save_steps)}, then the evaluation at {img} and "
+            f"{walk} px walks): {report['run_test_s']:.1f} s; K1 {k1}, K2 "
+            f"{k2}, K3 {k3} launches (the chunking implies {want_k3})")
+        bad = analysis_problems(analysis, out_dir, names)
+        if k1 != 2 * steps or k2 != steps or k3 != want_k3 or bad:
+            fail(f"cli.run_test: K1 {k1}, K2 {k2}, K3 {k3} (implied "
+                 f"{want_k3}); {bad}")
+        _, meta = state_lib.load_model_artifact(
+            os.path.join(cfg.logs_dir, "Final_Model.nn"))
+        log(f"  Output/: {sorted(os.listdir(out_dir))}; Final_Model.nn "
+            f"holds step {meta.get('selected_step', meta.get('steps'))}; "
+            f"Image_Summary Aligned_Img PSNR "
+            f"{analysis['Image_Summary']['Aligned_Img']['PSNR']['avg']:.3f},"
+            f" HM RMSE {analysis['HM']['After']['RMSE']:.3f} m")
+        del tr
+
+        ft.trunk_apply.launches = 0
+        t0 = time.perf_counter()
+        _, small = cli.run_test(cfg, eval_only=True,
+                                eval_img_size=EVAL_ONLY_SIZE, device=device)
+        torch.cuda.synchronize()
+        report["eval_only_s"] = time.perf_counter() - t0
+        report["k3_eval_only"] = ft.trunk_apply.launches
+        want = analysis_k3_launches(cams, test_idx, EVAL_ONLY_SIZE,
+                                    EVAL_ONLY_SIZE[0], gt.shape, cfg.chunk)
+        bad = analysis_problems(small, out_dir, names)
+        log(f"  cli.run_test(eval_only=True) at {EVAL_ONLY_SIZE}: "
+            f"{report['eval_only_s']:.1f} s, K3 {report['k3_eval_only']} "
+            f"launches (implied {want})")
+        if report["k3_eval_only"] != want or bad or set(small) != set(
+                analysis):
+            fail(f"run_test(eval_only=True): K3 {report['k3_eval_only']} "
+                 f"(implied {want}), {bad}, keys {sorted(small)}")
+        report["k3_launches"] = k3 + report["k3_eval_only"]
+
+        # the same model's analysis on the card and on the CPU
+        gt_small = gt[::CPU_EVAL_HM_STRIDE, ::CPU_EVAL_HM_STRIDE]
+        runs = {}
+        for dev in (device, "cpu"):
+            loaded = load_model_dir(cfg.logs_dir, device=dev)
+            r = Renderer(loaded.model, n_samples=cfg.n_samples,
+                         chunk=cfg.chunk, classic_solar=cfg.Solar_Type_2)
+            rec = {}
+            restore = _timed(img_eval, "align_errors", rec)
+            t0 = time.perf_counter()
+            try:
+                an = regional.analyze_model(
+                    r, r.model, cams, test_idx, gt_small, h_range,
+                    os.path.join(io_dir, f"an_{dev}"),
+                    hm_samples=cfg.n_samples, **cpu_eval)
+            finally:
+                restore()
+            runs[str(dev)] = (an, rec["align_errors"],
+                              time.perf_counter() - t0)
+            del loaded, r
+        card_an, card_align, card_s = runs[str(device)]
+        cpu_an, cpu_align, cpu_s = runs["cpu"]
+        cmp_ = compare_analyses(card_an, cpu_an, card_align, cpu_align)
+        report["card_vs_cpu"] = {"worst": cmp_["worst"],
+                                 "notes": cmp_["notes"], "card_s": card_s,
+                                 "cpu_s": cpu_s, **cpu_eval,
+                                 "hm_shape": list(gt_small.shape)}
+        log(f"  analysis on the card and on the CPU (plain versions) at "
+            f"{cpu_eval}, height map {gt_small.shape}: image scores within "
+            f"{cmp_['worst']['image_score_rel']:.3e} relative (tol "
+            f"{ANALYSIS_SCORE_RTOL:g}), height scores within "
+            f"{cmp_['worst']['hm_m']:.3e} m (tol {ANALYSIS_HM_TOL_M:g}); "
+            f"the CPU took {cpu_s:.1f} s, the card {card_s:.1f} s")
+        for note in cmp_["notes"]:
+            log(f"    differing choice: {note}")
+        if cmp_["problems"]:
+            fail(f"the card's analysis disagrees with the CPU's: "
+                 f"{cmp_['problems']}")
+    torch.cuda.empty_cache()
+    return report
+
+
 # --- phase 7: the real-site path ----------------------------------------------
 # A DFC2019-format site fabricated from SEED: SITE_VIEWS GeoTIFFs of
 # SITE_PX^2 px at SITE_GSD m a pixel, affine RPCs (parallax by each view's
@@ -1558,8 +1810,126 @@ def carve_recovers_surface(device) -> float:
     return float(np.median(np.abs(hm - hm_lookup(scene.hm, X, Y))))
 
 
+def site_analysis(device, cfg, prep, img_size=(256, 256),
+                  walk_size=128) -> dict:
+    """``analyze_model`` + ``write_analysis_outputs`` of the model directory
+    ``cfg.logs_dir`` on ``prep`` (what ``cli.prepare_real`` returned) at
+    the JAX defaults, twice: first with each part timed (the density
+    surface by CUDA events; the greedy alignment, the component renders,
+    their compositing into images, the seasonal alignment, the gauntlet
+    with its EMD LPs, the walks, the pickle and ``Output/`` by the host
+    clock around calls that end in a copy to the host), the K3 count set
+    to 0 just before and read just after; then again under
+    ``torch.profiler`` for the device's busy share."""
+    from season_nerf_torch.eval import hm_eval, img_eval, regional
+    from season_nerf_torch.geometry.units import angles_to_vec_from_site
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.render.loading import load_model_dir
+    from season_nerf_torch.render.renderer import Renderer
+    cams, _, _, test_idx, _, gt, h_range, wc, S = prep
+    names = [cams[i].name for i in test_idx]
+    renderer = Renderer(load_model_dir(cfg.logs_dir, device=device).model,
+                        n_samples=cfg.n_samples, chunk=cfg.chunk,
+                        classic_solar=cfg.Solar_Type_2)
+    out_dir = os.path.join(cfg.logs_dir, "Output")
+    rec, box = {}, {}
+    restore = [_timed(hm_eval, "density_surface", rec, cuda_events=True),
+               _timed(hm_eval, "greedy_align", rec),
+               _timed(Renderer, "component_render_by_camera", rec),
+               _timed(img_eval, "images_from_components", rec),
+               _timed(img_eval, "seasonal_align", rec),
+               _timed(img_eval, "image_quality_gauntlet", rec),
+               _timed(Renderer, "render_img", rec),
+               _timed(regional, "_dump", rec),
+               _timed(regional, "write_analysis_outputs", rec)]
+
+    def run():
+        box["analysis"] = regional.analyze_model(
+            renderer, renderer.model, cams, test_idx, gt, h_range,
+            cfg.logs_dir, hm_samples=cfg.n_samples, img_size=img_size,
+            walk_size=walk_size, angles_to_vec=angles_to_vec_from_site(wc,
+                                                                       S))
+        regional.write_analysis_outputs(box["analysis"], out_dir)
+
+    try:
+        ft.trunk_apply.launches = 0
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3 = ft.trunk_apply.launches
+    finally:
+        for r in restore:
+            r()
+    analysis = box["analysis"]
+    secs = lambda name: float(sum(r["s"] for r in rec[name]))
+    comps = [r["out"] for r in rec["component_render_by_camera"]]
+    prof = profile_device(run)
+    report = {
+        "img_size": list(img_size), "walk_size": walk_size,
+        "hm_shape": list(gt.shape), "hm_samples": cfg.n_samples,
+        "test_views": names,
+        "rays_kept": [int(c["img_pts"].shape[0]) for c in comps],
+        "component_host_bytes": [int(sum(v.nbytes for v in c.values()
+                                         if isinstance(v, np.ndarray)))
+                                 for c in comps],
+        "wall_s": wall,
+        "profiled_wall_s": prof["wall_ms"] / 1e3,
+        "device_busy_s": prof["device_busy_ms"] / 1e3,
+        "idle_share": prof["idle_share"],
+        "density_surface_device_ms": rec["density_surface"][0]["ms"],
+        "greedy_align_s": secs("greedy_align"),
+        "greedy_steps": float(np.abs(
+            analysis["HM"]["After"]["Shift_x_y_deg"]).sum()),
+        "component_renders_s": secs("component_render_by_camera"),
+        "images_from_components_s": secs("images_from_components"),
+        "seasonal_align_s": secs("seasonal_align"),
+        "gauntlet_s": secs("image_quality_gauntlet"),
+        "gauntlet_calls": len(rec["image_quality_gauntlet"]),
+        "walks_s": secs("render_img"),
+        "walk_frames": len(rec["render_img"]),
+        "pickle_s": secs("_dump"),
+        "output_s": secs("write_analysis_outputs"),
+        "k3_launches": k3,
+        "k3_implied": analysis_k3_launches(cams, test_idx, img_size,
+                                           walk_size, gt.shape, cfg.chunk),
+        "hm_before": analysis["HM"]["Before"],
+        "hm_after": analysis["HM"]["After"],
+        "image_summary": analysis["Image_Summary"]}
+    del rec, comps
+    log(f"  analysis at {tuple(img_size)} of {len(names)} held-out views "
+        f"(rays kept {report['rays_kept']}, per-sample components "
+        f"{[round(b / 1e9, 3) for b in report['component_host_bytes']]} GB "
+        f"on the host), {report['walk_frames']} walk frames at {walk_size} "
+        f"px, height map {tuple(gt.shape)} x {cfg.n_samples} samples: "
+        f"{report['wall_s']:.2f} s; again under the profiler "
+        f"{report['profiled_wall_s']:.2f} s, device busy "
+        f"{report['device_busy_s']:.2f} s (idle share "
+        + (f"{report['idle_share']:.3f})" if report["idle_share"] is not None
+           else "not measured: the profiler traced no device time)"))
+    log(f"    density surface {report['density_surface_device_ms']:.1f} ms "
+        f"(device, CUDA events); greedy_align {report['greedy_align_s']:.2f}"
+        f" s ({report['greedy_steps']:g} unit moves); component renders "
+        f"{report['component_renders_s']:.2f} s, composited into images "
+        f"{report['images_from_components_s']:.2f} s; seasonal_align "
+        f"{report['seasonal_align_s']:.2f} s; gauntlet with the EMD LPs "
+        f"{report['gauntlet_s']:.2f} s ({report['gauntlet_calls']} calls); "
+        f"walks {report['walks_s']:.2f} s; Analysis.pickle "
+        f"{report['pickle_s']:.2f} s; Output/ {report['output_s']:.2f} s")
+    log(f"    K3 launches {k3} (the chunking implies {report['k3_implied']});"
+        f" HM RMSE {report['hm_before']['RMSE']:.3f} m before alignment, "
+        f"{report['hm_after']['RMSE']:.3f} m after "
+        f"{report['hm_after']['Shift_x_y_deg']}; Aligned_Img PSNR avg "
+        f"{report['image_summary']['Aligned_Img']['PSNR']['avg']:.3f}")
+    bad = analysis_problems(analysis, out_dir, names)
+    if k3 != report["k3_implied"] or bad:
+        fail(f"the real site's analysis: K3 {k3} (implied "
+             f"{report['k3_implied']}), {bad}")
+    return report
+
+
 def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
-                   **model_kw) -> dict:
+                   analysis_kw=None, **model_kw) -> dict:
     """The real-site main path: fabricate a DFC-format site, then
     ``cli.run_train`` on it (ingest, camera fits, bounds, the ray table
     with its cache, the lidar DSM, the Space_Carve prior swept on the card,
@@ -1568,8 +1938,10 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
     through ``Trainer.run`` that ends in a save point (the ``Testing``
     losses, the validation report of the held-out views, the checkpoint),
     ``finalize`` again and ``render_pretrained`` of the written model
-    directory through K3.  The launch counts are set to 0 just before
-    ``run_train`` and read just after the render."""
+    directory through K3; then the model's evaluation
+    (:func:`site_analysis`, ``analysis_kw`` its sizes).  The launch counts
+    are set to 0 just before ``run_train`` and read just after the render,
+    and again around the evaluation."""
     from season_nerf_torch import cli
     from season_nerf_torch.config import Config, get_opts
     from season_nerf_torch.data import ingest, lidar, rays
@@ -1579,6 +1951,7 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
     from season_nerf_torch.train.engine import Trainer
     report = {"views": views, "px": px}
     rec = {}
+    analysis_kw = analysis_kw or {}
     with tempfile.TemporaryDirectory() as io_dir:
         t0 = time.perf_counter()
         report["site"] = fabricate_site(io_dir, views, px, device)
@@ -1592,7 +1965,8 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
                                     img_validation_downscale=SITE_VAL_DOWN,
                                     **model_kw)
         cfg = get_opts([], defaults=cfg)
-        restore = [_timed(ingest, "preprocess_site", rec),
+        restore = [_timed(cli, "prepare_real", rec),
+                   _timed(ingest, "preprocess_site", rec),
                    _timed(rays, "build_ray_table", rec),
                    _timed(rays.RayTable, "save", rec),
                    _timed(sc, "plane_sweep_scores", rec, cuda_events=True),
@@ -1790,6 +2164,10 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
         if not report["sweep_card_vs_cpu"] <= SWEEP_TOL:
             fail("the card's plane sweep disagrees with the CPU's")
         del tr
+        report["analysis"] = site_analysis(device, cfg,
+                                           rec["prepare_real"][0]["out"],
+                                           **analysis_kw)
+        del rec
     report["carve_median_err"] = carve_recovers_surface(device)
     log(f"  carve of a known surface (synthetic, 6 views, grid 24 x 24 x 16)"
         f" on the card: median height error "
@@ -1822,6 +2200,15 @@ def main():
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
+    import importlib.util
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("scipy", "cv2", "imageio", "tabulate", "matplotlib",
+                       "PIL")}
+    log("host packages (find_spec): " + ", ".join(
+        f"{m} {'present' if v else 'absent'}" for m, v in found.items()))
+    if not found["scipy"]:
+        fail("scipy is absent: the evaluation's alignment searches and LPs "
+             "need it")
 
     names = [ft.KERNEL, ftr.FWD_KERNEL, ftr.BWD_KERNEL]
     t0 = time.perf_counter()
@@ -1859,8 +2246,14 @@ def main():
         f"synthetic site ({VAL_STEPS} steps, {VAL_SAVES} save points)")
     validation = validation_path(device)
 
+    log(f"main path: the evaluation, cli.run_test on the synthetic site "
+        f"({EVAL_STEPS} steps, {EVAL_SAVES} save points, best_geometry) and "
+        f"with eval_only")
+    evaluation = evaluation_path(device)
+
     log(f"main path: the real-site path, cli.run_train on a fabricated "
-        f"DFC-format site ({SITE_VIEWS} views of {SITE_PX} px)")
+        f"DFC-format site ({SITE_VIEWS} views of {SITE_PX} px), then the "
+        f"evaluation of its model")
     real_site = real_site_path(device)
 
     flagship = trunk["trunk_infer[bfloat16,fast_sin]"][0]
@@ -1870,7 +2263,8 @@ def main():
         "source": "season_nerf_torch/csrc/trunk_infer.cu",
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
         "launches": (serving["k3_launches"] + validation["k3_launches"]
-                     + real_site["k3_launches"]),
+                     + evaluation["k3_launches"] + real_site["k3_launches"]
+                     + real_site["analysis"]["k3_launches"]),
         "max_abs_err": max(r["max_abs_err"]
                            for r in trunk["trunk_infer[bfloat16,fast_sin]"]),
         "ms": flagship["ms"],
@@ -1882,9 +2276,11 @@ def main():
     tk = train_kernels["flagship,bf16,fast_sin"]
     for key, name, line, launches in (
             ("k1", ftr.FWD_KERNEL, 238, training["k1_launches"]
-             + validation["k1_launches"] + real_site["k1_launches"]),
+             + validation["k1_launches"] + evaluation["k1_launches"]
+             + real_site["k1_launches"]),
             ("k2", ftr.BWD_KERNEL, 273, training["k2_launches"]
-             + validation["k2_launches"] + real_site["k2_launches"])):
+             + validation["k2_launches"] + evaluation["k2_launches"]
+             + real_site["k2_launches"])):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1905,7 +2301,8 @@ def main():
                    "trunk": trunk, "serving": serving,
                    "train_kernels": train_kernels, "gemms": gemms,
                    "training": training, "validation": validation,
-                   "real_site": real_site,
+                   "evaluation": evaluation, "real_site": real_site,
+                   "host_packages": found,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

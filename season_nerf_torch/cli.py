@@ -10,21 +10,22 @@
     python -m season_nerf_torch.cli setup_data --zip_dir ZIPS \
         --IO_Location DIR [--code_data_path DIR]
 
-``train`` is the training half of ``main.py`` (the JAX package's
-``run_test``): prepare the site, train (resuming from the newest
-``Model_<step>.nn`` of the log directory under the settings recorded in
-its opts.json), validate at every save point, and write
-``Final_Model.nn`` (the last step's or the selected save point's
-weights), ``opts.json``, ``W2C_W2L_H.npy`` and the split files, a model
-directory that ``render`` and the service load; then the validation
-report of the trained model.  ``lite`` is ``train`` over
-``lite_defaults()`` (``main_lite.py``).  A site named ``SYNTH*`` is the
-built-in synthetic scene; any other is a DFC2019-format site under
-``IO_Location`` (``IEEE_Data/Images/*_RGB.tif``, ``Cache/<site>/`` with the
-``.ikono`` RPCs and ``RPCs/*.IMD``, ``IEEE_Data/Track3-Truth/<site>_DSM.{tif,
-txt}``): ingest, camera fits, ray table, the DSM prior (space carving swept
-on the training device) and training.  The evaluation suite after training
-(``analyze_model``, ``regional_eval``) is not ported yet.
+``train`` is ``main.py`` (the JAX package's ``run_test``): prepare the
+site, train (resuming from the newest ``Model_<step>.nn`` of the log
+directory under the settings recorded in its opts.json), validate at every
+save point, and write ``Final_Model.nn`` (the last step's or the selected
+save point's weights), ``opts.json``, ``W2C_W2L_H.npy`` and the split
+files, a model directory that ``render`` and the service load; then the
+validation report of the trained model, and its evaluation
+(``analyze_model``): ``Analysis.pickle`` and ``Output/``.  ``lite`` is
+``train`` over ``lite_defaults()`` (``main_lite.py``).  A site named
+``SYNTH*`` is the built-in synthetic scene; any other is a DFC2019-format
+site under ``IO_Location`` (``IEEE_Data/Images/*_RGB.tif``,
+``Cache/<site>/`` with the ``.ikono`` RPCs and ``RPCs/*.IMD``,
+``IEEE_Data/Track3-Truth/<site>_DSM.{tif,txt}``): ingest, camera fits, ray
+table, the DSM prior (space carving swept on the training device) and
+training.  The regional suite
+(``regional_eval``, ``Detailed_Output/``) is not ported yet.
 ``render`` is the port of ``main_run_Season_NeRF.py``: a novel view of a
 model directory (season-adjusted composite times the shadow adjustment),
 written as PNG.  ``setup_data`` is ``main_setup_data.py``: unpack the
@@ -198,18 +199,20 @@ def prepare_real(cfg: Config, device="cuda"):
             gt_dsm, tuple(site.bounds_lla[2]), wc, S)
 
 
-def run_train(cfg: Config, train_steps: Optional[int] = None,
-              device="cuda"):
-    """Prepare the site, train (resuming from the newest checkpoint of the
-    log directory when ``cfg.resume``; a finished run skips to the end),
-    finalize and write the validation report -> the Trainer.  ``cfg`` is
-    what :func:`get_opts` returns: its directories resolved, a resumed
-    run's recorded settings adopted and opts.json written."""
+def _prepare(cfg: Config, device):
+    """The site of ``cfg``: built-in synthetic for ``SYNTH*`` names, else a
+    DFC2019-format site -> the tuple of :func:`prepare_synthetic`."""
+    if cfg.site_name.upper().startswith("SYNTH"):
+        return prepare_synthetic(cfg)
+    return prepare_real(cfg, device=device)
+
+
+def _train(cfg: Config, prep, train_steps: Optional[int], device):
+    """Train on the prepared site (resuming from the newest checkpoint of
+    the log directory when ``cfg.resume``; a finished run skips to the
+    end), finalize and write the validation report -> the Trainer."""
     from season_nerf_torch.geometry.units import sun_frame_from_site
     from season_nerf_torch.train.engine import Trainer
-    synth = cfg.site_name.upper().startswith("SYNTH")
-    prep = (prepare_synthetic(cfg) if synth
-            else prepare_real(cfg, device=device))
     _, table, train_idx, test_idx, prior, gt_dsm, _, wc, S = prep
     sun_frame = sun_frame_from_site(wc, S) if wc is not None else None
     val_table = table.split(np.array(test_idx)) if test_idx else None
@@ -229,6 +232,67 @@ def run_train(cfg: Config, train_steps: Optional[int] = None,
     trainer.finalize()
     trainer.validation_report()
     return trainer
+
+
+def run_train(cfg: Config, train_steps: Optional[int] = None,
+              device="cuda"):
+    """Prepare the site, train (resuming from the newest checkpoint of the
+    log directory when ``cfg.resume``; a finished run skips to the end),
+    finalize and write the validation report -> the Trainer.  ``cfg`` is
+    what :func:`get_opts` returns: its directories resolved, a resumed
+    run's recorded settings adopted and opts.json written."""
+    return _train(cfg, _prepare(cfg, device), train_steps, device)
+
+
+def run_test(cfg: Config, eval_only: bool = False,
+             train_steps: Optional[int] = None, eval_img_size=None,
+             eval_season_size=None, device="cuda"):
+    """The pipeline of ``main.py``: prepare the site; train as
+    :func:`run_train` does (or, with ``eval_only``, load the model
+    directory ``cfg.logs_dir``); then evaluate the model that
+    ``Final_Model.nn`` holds (the last step's weights, or the save point
+    ``final_model_selection`` chose) with :func:`analyze_model` into
+    ``Analysis.pickle`` and ``Output/`` -> (the Trainer or None, the
+    analysis).
+
+    ``eval_img_size`` (H, W) shrinks the test renders from 256 x 256 and
+    the walks from 128 px to H.  The regional suite (``Detailed_Output/``)
+    is not ported yet, so the run ends after ``Output/``;
+    ``eval_season_size``, which only that suite reads, is accepted and
+    unused."""
+    from season_nerf_torch.eval.regional import (analyze_model,
+                                                 write_analysis_outputs)
+    from season_nerf_torch.geometry.units import angles_to_vec_from_site
+    from season_nerf_torch.models.tnerf import model_from_config
+    from season_nerf_torch.render.renderer import Renderer
+    from season_nerf_torch.train.state import load_model_artifact
+    prep = _prepare(cfg, device)
+    cams, _, _, test_idx, _, gt_dsm, h_range, wc, S = prep
+    if eval_only:
+        # the model directory's own opts.json sets the architecture
+        model = load_model_dir(cfg.logs_dir, device=device).model
+        trainer = None
+    else:
+        trainer = _train(cfg, prep, train_steps, device)
+        model = trainer.model
+        if cfg.final_model_selection != "last" and cfg.logs_dir:
+            # finalize() may have chosen an earlier save point: evaluate
+            # the weights Final_Model.nn ships
+            sd, _ = load_model_artifact(
+                os.path.join(cfg.logs_dir, "Final_Model.nn"))
+            model = model_from_config(cfg).load_weights(sd).to(device)
+    renderer = Renderer(model, n_samples=cfg.n_samples, chunk=cfg.chunk,
+                        classic_solar=cfg.Solar_Type_2,
+                        use_hsluv=cfg.use_HSLuv)
+    analysis = analyze_model(
+        renderer, renderer.model, cams, test_idx, gt_dsm, h_range,
+        cfg.logs_dir, hm_samples=cfg.n_samples,
+        img_size=tuple(eval_img_size) if eval_img_size else (256, 256),
+        walk_size=eval_img_size[0] if eval_img_size else 128,
+        angles_to_vec=(angles_to_vec_from_site(wc, S) if wc is not None
+                       else None))
+    write_analysis_outputs(analysis, os.path.join(cfg.logs_dir, "Output"))
+    return trainer, analysis
 
 
 def setup_data(zip_dir: str, io_location: str, code_data_path=None):
@@ -321,9 +385,11 @@ def main(argv=None):
             allow_abbrev=False)).parse_known_args(argv[1:])
         cfg = get_opts(rest, lite_defaults() if args.command == "lite"
                        else None)
-        trainer = run_train(cfg, args.train_steps, device=args.device)
+        trainer, _ = run_test(cfg, train_steps=args.train_steps,
+                              device=args.device)
         print("trained", trainer.step, "steps; model directory",
-              cfg.logs_dir)
+              cfg.logs_dir, "evaluated into",
+              os.path.join(cfg.logs_dir, "Output"))
         return 0
     out_size = (args.Output_Size[0] if len(args.Output_Size) == 1
                 else tuple(args.Output_Size))

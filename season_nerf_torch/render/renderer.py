@@ -5,8 +5,9 @@ The render surfaces of ``season_nerf_tpu/render/renderer.py``:
 - whole-image render at any view/sun angle and time (``render_img``), with
   optional exact secondary-ray shadows, and the nadir height map
   (``get_dsm``);
-- per-sample raw component capture (``component_render``) and its
-  compositing into display images (``images_from_components``);
+- per-sample raw component capture (``component_render``, by view
+  direction or through a fitted camera) and its compositing into display
+  images (``images_from_components``);
 - free perspective cameras (``render_perspective``).
 
 Rays are processed ``chunk`` rays per dispatch on the composite paths and
@@ -82,6 +83,26 @@ def perspective_rays(position, pitch_deg, yaw_deg, fov_deg, out_size,
     good = t1 > t0
     return (tops[good].astype(np.float32), bots[good].astype(np.float32),
             img_pts[good])
+
+
+def camera_grid_rays(cam, out_size):
+    """Rays through a fitted camera on an ``out_size`` grid of its image
+    plane, kept where both ends stay inside the cube's x and y range
+    -> (tops, bots, img_pts, gt_img_pts): grid and source-image pixels."""
+    h_img, w_img = cam.img_shape[0], cam.img_shape[1]
+    rr = np.round(np.linspace(0, h_img - 1, out_size[0])).astype(int)
+    cc = np.round(np.linspace(0, w_img - 1, out_size[1])).astype(int)
+    RC = np.stack(np.meshgrid(rr, cc, indexing="ij"), -1).reshape(-1, 2)
+    x1, y1, _ = cam.backproject(RC[:, 0], RC[:, 1], 1.0)
+    x0, y0, _ = cam.backproject(RC[:, 0], RC[:, 1], -1.0)
+    tops = np.stack([x1, y1, np.ones_like(x1)], -1).astype(np.float32)
+    bots = np.stack([x0, y0, -np.ones_like(x0)], -1).astype(np.float32)
+    good = np.all((tops[:, :2] >= -1) & (tops[:, :2] <= 1)
+                  & (bots[:, :2] >= -1) & (bots[:, :2] <= 1), axis=1)
+    img_pts = np.stack(np.meshgrid(np.arange(out_size[0]),
+                                   np.arange(out_size[1]),
+                                   indexing="ij"), -1).reshape(-1, 2)
+    return tops[good], bots[good], img_pts[good], RC[good]
 
 
 def render_chunk_outputs(model, tops, bots, sun, t4, *, n_samples: int,
@@ -307,6 +328,18 @@ class Renderer:
                                     exact_solar)
         res["img_pts"] = img_pts
         res["sun_vec"] = np.asarray(sun_vec)
+        return res
+
+    def component_render_by_camera(self, cam, out_size, exact_solar=False):
+        """Per-sample components of a camera's view on an ``out_size`` grid
+        (:func:`camera_grid_rays`), with the grid pixels (``img_pts``) and
+        the source-image pixels they sample (``gt_img_pts``)."""
+        tops, bots, img_pts, gt_pts = camera_grid_rays(cam, out_size)
+        res = self.component_render(tops, bots, cam.sun_vec, cam.time_frac,
+                                    exact_solar)
+        res["img_pts"] = img_pts
+        res["gt_img_pts"] = gt_pts
+        res["sun_vec"] = np.asarray(cam.sun_vec)
         return res
 
 

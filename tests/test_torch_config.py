@@ -18,6 +18,7 @@ About 20 s on one worker.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import warnings
@@ -150,6 +151,16 @@ def test_get_opts_with_no_flags_keeps_every_default(tmp_path):
     assert os.path.exists(os.path.join(got.logs_dir, "opts.json"))
 
 
+@pytest.fixture
+def small_eval(monkeypatch):
+    """``cli train``/``lite`` end in ``run_test``'s evaluation, by default
+    at 256 x 256 test renders and 128 px walks: a minute and more on one
+    CPU thread.  These tests are about the training half, so it runs at
+    8 px (``test_torch_analysis.py`` holds the evaluation)."""
+    monkeypatch.setattr(t_cli, "run_test", functools.partial(
+        t_cli.run_test, eval_img_size=(8, 8)))
+
+
 def _train(io, *flags):
     return t_cli.main(["train", "--site_name", "SYNTH_R", "--exp_name", "r",
                        "--IO_Location", io, "--n_samples", "8",
@@ -159,7 +170,8 @@ def _train(io, *flags):
                        "--device", "cpu", *flags])
 
 
-def test_cli_train_resumed_under_other_flags_keeps_its_record(tmp_path):
+def test_cli_train_resumed_under_other_flags_keeps_its_record(tmp_path,
+                                                              small_eval):
     io = str(tmp_path)
     assert _train(io, "--max_train_steps", "2", "--fc_units", "32",
                   "--compute_dtype", "float32") == 0
@@ -181,7 +193,8 @@ def test_cli_train_resumed_under_other_flags_keeps_its_record(tmp_path):
     assert any(r["tag"] == "Testing/Total" and r["step"] == 4 for r in recs)
 
 
-def test_lite_subcommand_trains_with_the_lite_defaults(tmp_path):
+def test_lite_subcommand_trains_with_the_lite_defaults(tmp_path,
+                                                       small_eval):
     io = str(tmp_path)
     rc = t_cli.main(["lite", "--site_name", "SYNTH_L", "--IO_Location", io,
                      "--max_train_steps", "2", "--n_samples", "8",

@@ -389,3 +389,112 @@ def test_plane_sweep_on_the_card_matches_the_cpu(cuda):
     assert card.shape == (16, 16, 8) and np.isfinite(card).all()
     assert np.abs(card - cpu).max() <= SWEEP_TOL
     assert carve_recovers_surface(cuda) < CARVE_TOL
+
+
+# --- the evaluation after training: the batched scorers and analyze_model --
+def _eval_model(dtype, device):
+    """A seeded width-128, four-layer eval model (``make_model``) on
+    ``device``: f32 or the flagship's bf16 with the polynomial sine."""
+    return make_model(Config(fc_units=128, fc_layers=4,
+                             compute_dtype=dtype)).to(device)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3),
+                                       ("bfloat16", RENDER_TOL)])
+def test_density_surface_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    """The density surface through K3 on the card against the plain
+    versions on the CPU: f32 within TOL's 1e-3 (K3 against its plain
+    version), bf16 within RENDER_TOL; one K3 launch per 4096 columns."""
+    from chip_smoke import CHUNK_COLS
+    from season_nerf_torch.eval import hm_eval
+    grid = (70, 61)                       # 4270 columns: 2 calls
+    before = ft.trunk_apply.launches
+    card = hm_eval.density_surface(_eval_model(dtype, cuda), grid,
+                                   n_samples=96)
+    assert ft.trunk_apply.launches - before == -(-70 * 61 // CHUNK_COLS)
+    cpu = hm_eval.density_surface(_eval_model(dtype, "cpu"), grid,
+                                  n_samples=96)
+    for a, b in zip(card, cpu):
+        assert a.shape == grid and np.isfinite(a).all()
+    assert np.abs(card[0] - cpu[0]).max() <= tol
+
+
+def test_seasonal_alignment_on_the_card_matches_the_cpu(cuda):
+    """Every candidate's error of the seasonal alignment, scored on the
+    card, against the CPU on the same components: 1e-5 relative (float32
+    in other orders), in blocks of 7 candidates on the card."""
+    from season_nerf_torch.data.synthetic import make_scene
+    from season_nerf_torch.eval import img_eval
+    from season_nerf_torch.render.renderer import Renderer
+    scene = make_scene(n_views=3, img_size=32, grid=24, seed=5)
+    cam = scene.cameras[0]
+    r_cpu = Renderer(_eval_model("float32", "cpu"), n_samples=32)
+    comp = r_cpu.component_render_by_camera(cam, (24, 24))
+    gt = cam.image[comp["gt_img_pts"][:, 0], comp["gt_img_pts"][:, 1]]
+    want = img_eval.align_errors(r_cpu, comp, gt, cam.time_frac, 100)
+    n, s = comp["rho"].shape[:2]
+    block = img_eval.ALIGN_BLOCK_BYTES
+    img_eval.ALIGN_BLOCK_BYTES = 7 * n * s * 3 * 4
+    try:
+        got = img_eval.align_errors(
+            Renderer(_eval_model("float32", cuda), n_samples=32), comp, gt,
+            cam.time_frac, 100)
+    finally:
+        img_eval.ALIGN_BLOCK_BYTES = block
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got[3], want[3], rtol=0, atol=1e-5)
+
+
+def test_sinkhorn_batch_on_the_card_matches_the_cpu(cuda):
+    """The batched Sinkhorn EMD on the card against the CPU: 1e-4
+    relative (float32 logsumexps in other orders)."""
+    from season_nerf_torch.eval import emd
+    rng = np.random.default_rng(3)
+    sigs = [emd.color_signature(rng.uniform(size=(16, 16, 3)) ** (1 + i))
+            for i in range(6)]
+    W1, X1 = emd.pad_signatures(sigs)
+    W2, X2 = emd.pad_signatures(sigs[::-1])
+    card = emd.emd_sinkhorn_batch(W1, X1, W2, X2, device=cuda)
+    cpu = emd.emd_sinkhorn_batch(W1, X1, W2, X2, device="cpu")
+    assert np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=0)
+
+
+def test_analyze_model_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``analyze_model`` + ``write_analysis_outputs`` of a bf16 model on
+    the card (K3) and on the CPU: chip_smoke.compare_analyses's
+    tolerances (image scores ANALYSIS_SCORE_RTOL, height scores
+    ANALYSIS_HM_TOL_M; a differing alignment choice is reported, not
+    held), K3's launches as the chunking implies, every output file."""
+    from chip_smoke import (_timed, analysis_k3_launches,
+                            analysis_problems, compare_analyses)
+    from season_nerf_torch.data.synthetic import make_scene
+    from season_nerf_torch.eval import img_eval, regional
+    from season_nerf_torch.render.renderer import Renderer
+    scene = make_scene(n_views=4, img_size=32, grid=24, seed=6)
+    test_idx = [1, 3]
+    kw = dict(hm_samples=32, img_size=(20, 20), walk_size=12)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        r = Renderer(_eval_model("bfloat16", dev), n_samples=32, chunk=300)
+        rec = {}
+        restore = _timed(img_eval, "align_errors", rec)
+        before = ft.trunk_apply.launches
+        try:
+            an = regional.analyze_model(r, r.model, scene.cameras, test_idx,
+                                        scene.hm, (0.0, 30.0),
+                                        str(tmp_path / str(dev)), **kw)
+        finally:
+            restore()
+        regional.write_analysis_outputs(an, str(tmp_path / str(dev) / "Out"))
+        runs[str(dev)] = (an, rec["align_errors"],
+                          ft.trunk_apply.launches - before)
+    (card, card_al, k3), (cpu, cpu_al, _) = runs[str(cuda)], runs["cpu"]
+    assert k3 == analysis_k3_launches(scene.cameras, test_idx, (20, 20), 12,
+                                      scene.hm.shape, 300)
+    names = [scene.cameras[i].name for i in test_idx]
+    assert not analysis_problems(card, str(tmp_path / str(cuda) / "Out"),
+                                 names)
+    res = compare_analyses(card, cpu, card_al, cpu_al)
+    assert not res["problems"], res

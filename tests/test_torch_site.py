@@ -548,6 +548,10 @@ def prepared(site, tmp_path_factory):
         for ing, cam in ((j_ingest, j_cam), (t_ingest, t_cam)):
             mp.setattr(ing, "test_accuracy",
                        functools.partial(cam.test_accuracy, n_test=10))
+        # cli train's evaluation at 8 px, not its default 256 x 256 test
+        # renders and 128 px walks (test_torch_analysis.py holds it)
+        mp.setattr(t_cli, "run_test", functools.partial(
+            t_cli.run_test, eval_img_size=(8, 8)))
         for sc in (j_sc, t_sc):
             mp.setattr(sc, "model_grid_from_bounds", grid)
             mp.setattr(sc, "space_carve_dsm",

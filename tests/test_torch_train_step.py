@@ -34,6 +34,7 @@ Tolerances (float32 throughout):
   those biases times omega (30), to 2e-3 (measured 6.5e-4).
 """
 
+import functools
 import math
 
 import jax
@@ -334,8 +335,13 @@ def test_step_draws_are_keyed_by_step():
 
 
 # --- the command line -------------------------------------------------------
-def test_cli_train_writes_a_model_dir_the_port_renders(tmp_path):
+def test_cli_train_writes_a_model_dir_the_port_renders(tmp_path,
+                                                       monkeypatch):
     from season_nerf_torch.render.loading import load_model_dir
+    # the evaluation that ends cli train at 8 px, not its default 256 x 256
+    # test renders and 128 px walks (test_torch_analysis.py holds it)
+    monkeypatch.setattr(t_cli, "run_test", functools.partial(
+        t_cli.run_test, eval_img_size=(8, 8)))
     rc = t_cli.main(["train", "--site_name", "SYNTH_T", "--exp_name", "e",
                      "--IO_Location", str(tmp_path), "--max_train_steps",
                      "4", "--n_samples", "8", "--batch_size", "16",
@@ -346,7 +352,8 @@ def test_cli_train_writes_a_model_dir_the_port_renders(tmp_path):
     assert rc == 0
     d = tmp_path / "Logs" / "e"
     for name in ("Final_Model.nn", "opts.json", "W2C_W2L_H.npy",
-                 "Model_4.nn", "metrics.jsonl"):
+                 "Model_4.nn", "metrics.jsonl", "Analysis.pickle",
+                 "Output/Image_scores.txt", "Output/Time_Walk.gif"):
         assert (d / name).exists(), name
     loaded = load_model_dir(str(d), device="cpu")
     assert loaded.cfg.fc_units == 32
