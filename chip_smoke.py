@@ -83,18 +83,27 @@ Phases, each fatal on failure:
    256 x 256, 17 walk frames at 128 px, the density surface on the lidar
    DSM's grid) under the profiler: seconds by part, the device's busy
    share, K3's launches against the chunking, finite scores and every
-   file of ``Output/``;
+   file of ``Output/``; then ``regional_eval`` of the same directory at
+   the JAX ``quick`` sizes into ``Detailed_Output/`` (the site prepared
+   once: not through ``eval_region``, whose ``eval_only`` ingests it
+   again), once under the profiler: seconds by part, the device's busy
+   share, K3's launches against the chunking, finite scores and every
+   file;
 8. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
    summed over the main paths), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Between 6 and 7, the evaluation path: ``cli.run_test`` on the synthetic
 site of phase 6 (8 steps, 2 save points, ``best_geometry``, then
-``Analysis.pickle`` and ``Output/`` at the JAX defaults) and
-``run_test(eval_only=True)`` on its directory, K3's launches against the
-chunking; then the model's analysis on the card and on the CPU (plain
-versions) at a small size: the image scores, the height scores, the
-aligned time and the height shift held against each other.  Before
+``Analysis.pickle`` and ``Output/`` at the JAX defaults and
+``regional_eval`` into ``Detailed_Output/`` at the quick sizes),
+``run_test(eval_only=True)`` on its directory and ``cli eval_region`` on
+it (``Full_Summary/``), K3's launches against the chunking; then the
+model's analysis, and its regional evaluation, on the card and on the CPU
+(plain versions) at a small size: the image scores, the height scores,
+the aligned time and the height shift, the shadow test's statistics, the
+season walk's EM statistics and the prototype baseline held against each
+other.  Before
 phase 2, the host's scipy, cv2, imageio, tabulate, matplotlib and PIL
 are looked up (``importlib.util.find_spec``); scipy must be there.
 
@@ -108,6 +117,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import pickle
 import struct
 import subprocess
 import sys
@@ -133,6 +143,8 @@ PEAK_BYTES = 3.35e12
 FLAGSHIP_N = 5120 * 96          # points in one flagship render chunk
 VAL_N = 4096 * 96               # points in one validation render chunk
 SHADOW_N = 5120                 # points in one exact-shadow chunk
+SUN_ANGLE_N = 16 * 16 * 48      # the quick shadow test's points a sun angle
+SURFACE_N = 4096 * 48           # the quick density surface's points a call
 RAGGED_N = 4133                 # not a multiple of any tile
 SEED = 0
 STEADY_PATH = "/render?size=128"
@@ -257,12 +269,12 @@ def calibrate_bn_(gnerf, n_points: int = 4096, seed: int = SEED):
         h = torch.sin(z)
 
 
-def make_model(cfg):
+def make_model(cfg, seed=SEED):
     """A seeded full-width model on the CPU, BN statistics calibrated."""
     from season_nerf_torch.models.tnerf import model_from_config
-    torch.manual_seed(SEED)
+    torch.manual_seed(seed)
     model = model_from_config(cfg)
-    calibrate_bn_(model.G_NeRF_net)
+    calibrate_bn_(model.G_NeRF_net, seed=seed)
     return model
 
 
@@ -285,7 +297,8 @@ def check_trunk(model, device) -> dict:
         for fast_sine in (True, False):
             name = (f"trunk_infer[{str(dtype).split('.')[-1]},"
                     f"{'fast_sin' if fast_sine else 'sinf'}]")
-            for n in (FLAGSHIP_N, VAL_N, SHADOW_N, RAGGED_N):
+            for n in (FLAGSHIP_N, VAL_N, SURFACE_N, SUN_ANGLE_N, SHADOW_N,
+                      RAGGED_N):
                 pts = torch.rand(n, 3, generator=gen, device=device) * 2 - 1
                 pe = ft.encode_points(pts).contiguous()
                 got = ft.trunk_apply(pe, folded, fast_sine)
@@ -1360,10 +1373,13 @@ def analysis_problems(analysis, out_dir, test_names) -> list:
     return bad
 
 
-def compare_analyses(card, cpu, card_align, cpu_align) -> dict:
-    """The card's analysis against the CPU's (see ANALYSIS_SCORE_RTOL)
-    -> {"worst": largest differences, "problems": what exceeds them,
-    "notes": differing choices and their runner-up gaps}."""
+def compare_analyses(card, cpu, card_align, cpu_align,
+                     score_rtol=ANALYSIS_SCORE_RTOL,
+                     hm_tol_m=ANALYSIS_HM_TOL_M) -> dict:
+    """The card's analysis against the CPU's (see ANALYSIS_SCORE_RTOL;
+    ``score_rtol`` and ``hm_tol_m`` set the two tolerances) -> {"worst":
+    largest differences, "problems": what exceeds them, "notes": differing
+    choices and their runner-up gaps}."""
     worst = {"image_score_rel": 0.0, "hm_m": 0.0}
     problems, notes = [], []
     b_card, b_cpu = card["HM"]["After"], cpu["HM"]["After"]
@@ -1379,7 +1395,7 @@ def compare_analyses(card, cpu, card_align, cpu_align) -> dict:
         for k in ("MAE", "RMSE", "Median"):
             d = abs(card["HM"][part][k] - cpu["HM"][part][k])
             worst["hm_m"] = max(worst["hm_m"], d)
-            if not d <= ANALYSIS_HM_TOL_M:
+            if not d <= hm_tol_m:
                 problems.append(f"HM {part} {k}: {card['HM'][part][k]} "
                                 f"against {cpu['HM'][part][k]}")
         worst[f"acc_1_m_{part}"] = abs(card["HM"][part]["Acc_1_m"]
@@ -1403,18 +1419,150 @@ def compare_analyses(card, cpu, card_align, cpu_align) -> dict:
                                e_card["Scores"][variant], s_cpu):
                 rel = abs(a - b) / max(1.0, abs(b))
                 worst["image_score_rel"] = max(worst["image_score_rel"], rel)
-                if not rel <= ANALYSIS_SCORE_RTOL:
+                if not rel <= score_rtol:
                     problems.append(f"{name} {variant} {m}: {a} against {b}")
     return {"worst": worst, "problems": problems, "notes": notes}
 
 
+# The regional evaluation (regional_eval into Detailed_Output/): the
+# card's (K3) against the CPU's (plain versions) at CPU_REGIONAL, the
+# shadow test at its quick sizes (16 x 16 ground points, 6 across the
+# angles) and CPU_REGIONAL's samples, the quick sizes' 48, so that the
+# surface and the sun rays go through K3 at the shapes the main path gives
+# it (SURFACE_N and SUN_ANGLE_N points a call): height scores within
+# REGIONAL_HM_TOL_M (the bf16 density's differences move a column's
+# expected height in proportion to the samples' spacing: at 8 samples,
+# 3.75 m of the 30 m range apart, the median moved 1.34e-3 m), image
+# scores within REGIONAL_SCORE_RTOL relative
+# (the same aligned time and shift, else the choice is reported as in
+# compare_analyses), the shadow test's Loss and Avg_Error within
+# SHADOW_ERR_TOL, its rates within SHADOW_RATE_TOL (bf16 re-rounding
+# moves samples across the 0.5 threshold; Avg_Offset, the mean change of
+# a ray's lit count, within SHADOW_RATE_TOL samples a sample of the ray),
+# the season walk's EM statistics within SEASON_RTOL relative (Sinkhorn
+# on renders ~1e-3 apart) and the prototype baseline equal (host LPs on
+# the same images).
+CPU_REGIONAL = dict(img_size=(12, 12), season_size=(8, 8), hm_samples=48)
+REGIONAL_HM_TOL_M = 5e-4
+REGIONAL_SCORE_RTOL = 1e-3
+SHADOW_ERR_TOL = 1e-4
+SHADOW_RATE_TOL = 2e-3
+SEASON_RTOL = 1e-3
+DETAILED_FILES = ("Data_Sat_and_Sun_pose.png", "Prototypical_Imgs.png",
+                  "HM_Summary.pickle", "HM_scores.txt", "Height_Maps.png",
+                  "Img_Summary.pickle", "Image_scores.txt",
+                  "Shadow_Scores_Summary.pickle", "Shadow_scores.txt",
+                  "Season_Summary.pickle", "Season_scores.txt",
+                  "Region_Results.pickle")
+MERGED_FILES = ("All_HM_scores.txt", "All_Image_scores.txt",
+                "All_Shadow_scores.txt", "All_Season_scores.txt",
+                "Merged_Results.pickle")
+SHADOW_RATES = ("Acc", "Prec_Sun", "Recall_Sun", "Prec_Shadow",
+                "Recall_Shadow")
+
+
+def regional_k3_launches(cams, test_idx, img_size, season_size, hm_shape,
+                         chunk) -> int:
+    """K3 launches ``regional_eval`` (quick) implies: one per CHUNK_COLS
+    columns of the height map, one per ``chunk`` rays that
+    ``camera_grid_rays`` keeps of each test view, one ``forward_solar``
+    per sun angle of the shadow test's four sets, one per ``chunk`` rays
+    of each season render."""
+    from season_nerf_torch.eval.walks import (get_walking_points,
+                                              shadow_walk_points)
+    from season_nerf_torch.render.renderer import camera_grid_rays
+    held = set(test_idx)
+    cols = -(-int(np.prod(hm_shape)) // CHUNK_COLS) if hm_shape else 0
+    views = sum(-(-camera_grid_rays(cams[i], img_size)[0].shape[0]
+                  // chunk) for i in test_idx)
+    sets = shadow_walk_points([c for i, c in enumerate(cams) if i not in held],
+                              [cams[i] for i in test_idx], 16, 6)
+    angles = sum(len(v) for k, v in sets.items() if k != "Ground_Points")
+    v, s, t = get_walking_points(cams, 3, 3, 4, 20.0)
+    season = (len(v) * len(s) * len(t)
+              * -(-season_size[0] * season_size[1] // chunk))
+    return cols + views + angles + season
+
+
+def regional_problems(results, out_dir) -> list:
+    """What is wrong with a regional evaluation: non-finite scores (a rate
+    without a denominator is NaN in both packages and not counted),
+    missing files of ``Detailed_Output/``."""
+    bad = []
+    for part in ("Before", "After", "Prior"):
+        for k, v in (results.get("HM", {}).get(part) or {}).items():
+            if k != "Shift_x_y_deg" and not np.isfinite(v):
+                bad.append(f"HM {part} {k} = {v}")
+    for name, e in results["Images"]["Per_Image"].items():
+        for variant, scores in e["Scores"].items():
+            if not np.all(np.isfinite(scores)):
+                bad.append(f"{name} {variant} = {scores}")
+    for name, st in results["Shadows"].items():
+        for k in ("Acc", "Loss", "Avg_Error", "Avg_Offset"):
+            if not np.isfinite(st[k]):
+                bad.append(f"shadows {name} {k} = {st[k]}")
+    for k, v in results["Seasons"]["Stability"].items():
+        if not np.isfinite(v):
+            bad.append(f"season stability {k} = {v}")
+    bad += [f"Detailed_Output/ lacks {f}"
+            for f in sorted(set(DETAILED_FILES) - set(os.listdir(out_dir)))]
+    return bad
+
+
+def compare_regionals(card, cpu, card_align, cpu_align, hm_samples,
+                      season_rtol=SEASON_RTOL) -> dict:
+    """The card's regional results against the CPU's (see CPU_REGIONAL;
+    ``season_rtol`` sets the season statistics' tolerance) ->
+    compare_analyses's dict, with the shadow and season claims."""
+    views = lambda r: {"HM": r["HM"], "Images": r["Images"]["Per_Image"]}
+    out = compare_analyses(views(card), views(cpu), card_align, cpu_align,
+                           score_rtol=REGIONAL_SCORE_RTOL,
+                           hm_tol_m=REGIONAL_HM_TOL_M)
+    worst, problems = out["worst"], out["problems"]
+    for k, v in (cpu["HM"]["Prior"] or {}).items():
+        if card["HM"]["Prior"][k] != v:
+            problems.append(f"prior DSM {k}: {card['HM']['Prior'][k]} "
+                            f"against {v} (host arithmetic)")
+    worst.update(shadow_err=0.0, shadow_rate=0.0, shadow_offset=0.0,
+                 season_rel=0.0)
+    for name, s_cpu in cpu["Shadows"].items():
+        s_card = card["Shadows"][name]
+        for keys, tol, w in ((("Loss", "Avg_Error"), SHADOW_ERR_TOL,
+                              "shadow_err"),
+                             (SHADOW_RATES, SHADOW_RATE_TOL, "shadow_rate"),
+                             (("Avg_Offset",), SHADOW_RATE_TOL * hm_samples,
+                              "shadow_offset")):
+            for k in keys:
+                a, b = s_card[k], s_cpu[k]
+                if np.isnan(a) and np.isnan(b):
+                    continue
+                d = abs(a - b)
+                worst[w] = max(worst[w], d)
+                if not d <= tol:
+                    problems.append(f"shadows {name} {k}: {a} against {b}")
+    for k, b in cpu["Seasons"]["Stability"].items():
+        a = card["Seasons"]["Stability"][k]
+        rel = abs(a - b) / abs(b)
+        worst["season_rel"] = max(worst["season_rel"], rel)
+        if not rel <= season_rtol:
+            problems.append(f"season stability {k}: {a} against {b}")
+    b_card, b_cpu = card["Seasons"]["Baseline"], cpu["Seasons"]["Baseline"]
+    if not np.array_equal(b_card, b_cpu, equal_nan=True):
+        problems.append(f"baseline EM: {b_card} against {b_cpu}")
+    return out
+
+
 def evaluation_path(device, steps=EVAL_STEPS, cpu_eval=CPU_EVAL,
-                    eval_size=None, **model_kw) -> dict:
+                    eval_size=None, cpu_regional=CPU_REGIONAL,
+                    **model_kw) -> dict:
     """``cli.run_test`` end to end (``eval_size`` its ``eval_img_size``,
-    None the JAX defaults) and with ``eval_only`` on the synthetic site of
-    ``bench.py``, then the model's analysis on the card against the CPU
-    (see the constants above).  The launch counts are set to 0 just
-    before each ``run_test`` and read just after it."""
+    None the JAX defaults; the analysis, then ``regional_eval`` at its
+    quick sizes) and with ``eval_only`` on the synthetic site of
+    ``bench.py``, then ``cli eval_region`` on its model directory, then
+    the model's analysis and its regional evaluation on the card against
+    the CPU (see the constants above).  The launch counts are set to 0
+    just before each ``run_test`` and ``eval_region`` and read just after
+    it."""
     from season_nerf_torch import cli
     from season_nerf_torch.config import get_opts
     from season_nerf_torch.eval import img_eval, regional
@@ -1430,10 +1578,12 @@ def evaluation_path(device, steps=EVAL_STEPS, cpu_eval=CPU_EVAL,
             max_train_steps=steps, n_saves=EVAL_SAVES,
             final_model_selection="best_geometry", **model_kw)
         cfg = get_opts([], defaults=cfg)
-        cams, table, _, test_idx, _, gt, h_range, _, _ = \
+        cams, table, _, test_idx, prior, gt, h_range, _, _ = \
             cli.prepare_synthetic(cfg)
         names = [cams[i].name for i in test_idx]
         out_dir = os.path.join(cfg.logs_dir, "Output")
+        detailed = os.path.join(cfg.logs_dir, "Detailed_Output")
+        season = (64, 64)                   # regional_eval's quick size
 
         ftr.trunk_fwd.launches = ftr.trunk_bwd.launches = 0
         ft.trunk_apply.launches = 0
@@ -1450,14 +1600,21 @@ def evaluation_path(device, steps=EVAL_STEPS, cpu_eval=CPU_EVAL,
         img, walk = ((256, 256), 128) if eval_size is None else (
             tuple(eval_size), eval_size[0])
         want_k3 = (n_saves * (2 + chunks) + chunks + analysis_k3_launches(
-            cams, test_idx, img, walk, gt.shape, cfg.chunk))
+            cams, test_idx, img, walk, gt.shape, cfg.chunk)
+            + regional_k3_launches(cams, test_idx, img, season, gt.shape,
+                                   cfg.chunk))
         report.update(k1_launches=k1, k2_launches=k2, k3_train_and_eval=k3,
                       k3_implied=want_k3)
         log(f"  cli.run_test ({steps} steps, save points "
             f"{sorted(tr.save_steps)}, then the evaluation at {img} and "
-            f"{walk} px walks): {report['run_test_s']:.1f} s; K1 {k1}, K2 "
+            f"{walk} px walks, then regional_eval at {img}, season walk "
+            f"{season}): {report['run_test_s']:.1f} s; K1 {k1}, K2 "
             f"{k2}, K3 {k3} launches (the chunking implies {want_k3})")
-        bad = analysis_problems(analysis, out_dir, names)
+        with open(os.path.join(detailed, "Region_Results.pickle"),
+                  "rb") as f:
+            region = pickle.load(f)
+        bad = (analysis_problems(analysis, out_dir, names)
+               + regional_problems(region, detailed))
         if k1 != 2 * steps or k2 != steps or k3 != want_k3 or bad:
             fail(f"cli.run_test: K1 {k1}, K2 {k2}, K3 {k3} (implied "
                  f"{want_k3}); {bad}")
@@ -1468,6 +1625,11 @@ def evaluation_path(device, steps=EVAL_STEPS, cpu_eval=CPU_EVAL,
             f"Image_Summary Aligned_Img PSNR "
             f"{analysis['Image_Summary']['Aligned_Img']['PSNR']['avg']:.3f},"
             f" HM RMSE {analysis['HM']['After']['RMSE']:.3f} m")
+        log(f"  Detailed_Output/: {sorted(os.listdir(detailed))}; shadow "
+            f"Full_Walk Acc {region['Shadows']['Full_Walk']['Acc']:.4f}, "
+            f"season walk EM mean "
+            f"{region['Seasons']['Stability']['mean']:.4f}, prior DSM RMSE "
+            f"{region['HM']['Prior']['RMSE']:.3f} m")
         del tr
 
         ft.trunk_apply.launches = 0
@@ -1477,9 +1639,15 @@ def evaluation_path(device, steps=EVAL_STEPS, cpu_eval=CPU_EVAL,
         torch.cuda.synchronize()
         report["eval_only_s"] = time.perf_counter() - t0
         report["k3_eval_only"] = ft.trunk_apply.launches
-        want = analysis_k3_launches(cams, test_idx, EVAL_ONLY_SIZE,
-                                    EVAL_ONLY_SIZE[0], gt.shape, cfg.chunk)
-        bad = analysis_problems(small, out_dir, names)
+        want = (analysis_k3_launches(cams, test_idx, EVAL_ONLY_SIZE,
+                                     EVAL_ONLY_SIZE[0], gt.shape, cfg.chunk)
+                + regional_k3_launches(cams, test_idx, EVAL_ONLY_SIZE,
+                                       season, gt.shape, cfg.chunk))
+        with open(os.path.join(detailed, "Region_Results.pickle"),
+                  "rb") as f:
+            region = pickle.load(f)
+        bad = (analysis_problems(small, out_dir, names)
+               + regional_problems(region, detailed))
         log(f"  cli.run_test(eval_only=True) at {EVAL_ONLY_SIZE}: "
             f"{report['eval_only_s']:.1f} s, K3 {report['k3_eval_only']} "
             f"launches (implied {want})")
@@ -1487,7 +1655,41 @@ def evaluation_path(device, steps=EVAL_STEPS, cpu_eval=CPU_EVAL,
                 analysis):
             fail(f"run_test(eval_only=True): K3 {report['k3_eval_only']} "
                  f"(implied {want}), {bad}, keys {sorted(small)}")
-        report["k3_launches"] = k3 + report["k3_eval_only"]
+
+        # cli eval_region, the port of main_eval_region.py, at its defaults
+        ft.trunk_apply.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["eval_region", "--Model_Locations", cfg.logs_dir,
+                       "--device", str(device)])
+        torch.cuda.synchronize()
+        report["eval_region_s"] = time.perf_counter() - t0
+        report["k3_eval_region"] = ft.trunk_apply.launches
+        want = (analysis_k3_launches(cams, test_idx, (256, 256), 128,
+                                     gt.shape, cfg.chunk)
+                + regional_k3_launches(cams, test_idx, (256, 256), season,
+                                       gt.shape, cfg.chunk))
+        summary = os.path.join(os.path.dirname(cfg.logs_dir), "Full_Summary")
+        found = sorted(os.listdir(summary)) if os.path.isdir(summary) else []
+        merged = {}
+        if "Merged_Results.pickle" in found:
+            with open(os.path.join(summary, "Merged_Results.pickle"),
+                      "rb") as f:
+                merged = pickle.load(f)
+        finite = all(np.isfinite(v) for kind in ("HM", "Seasons")
+                     for scores in merged.get(kind, {}).values()
+                     for k, v in scores.items() if k != "Shift_x_y_deg")
+        log(f"  cli eval_region on the model directory: rc {rc}, "
+            f"{report['eval_region_s']:.1f} s, K3 {report['k3_eval_region']}"
+            f" launches (implied {want}); Full_Summary/: {found}")
+        if rc != 0 or report["k3_eval_region"] != want \
+                or sorted(MERGED_FILES) != found or not finite \
+                or not all(merged.get(k) for k in ("HM", "Images", "Shadows",
+                                                   "Seasons")):
+            fail(f"cli eval_region: rc {rc}, K3 {report['k3_eval_region']} "
+                 f"(implied {want}), Full_Summary/ {found}, merged "
+                 f"{ {k: list(v) for k, v in merged.items()} }")
+        report["k3_launches"] = (k3 + report["k3_eval_only"]
+                                 + report["k3_eval_region"])
 
         # the same model's analysis on the card and on the CPU
         gt_small = gt[::CPU_EVAL_HM_STRIDE, ::CPU_EVAL_HM_STRIDE]
@@ -1527,6 +1729,50 @@ def evaluation_path(device, steps=EVAL_STEPS, cpu_eval=CPU_EVAL,
         if cmp_["problems"]:
             fail(f"the card's analysis disagrees with the CPU's: "
                  f"{cmp_['problems']}")
+
+        # the same model's regional evaluation on the card and on the CPU
+        runs = {}
+        for dev in (device, "cpu"):
+            loaded = load_model_dir(cfg.logs_dir, device=dev)
+            r = Renderer(loaded.model, n_samples=cfg.n_samples,
+                         chunk=cfg.chunk, classic_solar=cfg.Solar_Type_2)
+            rec = {}
+            restore = _timed(img_eval, "align_errors", rec)
+            t0 = time.perf_counter()
+            try:
+                res = regional.regional_eval(
+                    r, r.model, cams, test_idx, gt, prior, h_range,
+                    os.path.join(io_dir, f"region_{dev}"), **cpu_regional)
+            finally:
+                restore()
+            runs[str(dev)] = (res, rec["align_errors"],
+                              time.perf_counter() - t0)
+            del loaded, r
+        card_res, card_align, card_s = runs[str(device)]
+        cpu_res, cpu_align, cpu_s = runs["cpu"]
+        cmp_ = compare_regionals(card_res, cpu_res, card_align, cpu_align,
+                                 cpu_regional["hm_samples"])
+        report["regional_card_vs_cpu"] = {
+            "worst": cmp_["worst"], "notes": cmp_["notes"], "card_s": card_s,
+            "cpu_s": cpu_s, **{k: list(v) if isinstance(v, tuple) else v
+                              for k, v in cpu_regional.items()},
+            "hm_shape": list(gt.shape)}
+        w = cmp_["worst"]
+        log(f"  regional_eval on the card and on the CPU at {cpu_regional}, "
+            f"shadows at 16 x 16 points: height scores within "
+            f"{w['hm_m']:.3e} m (tol {REGIONAL_HM_TOL_M:g}), image scores "
+            f"within {w['image_score_rel']:.3e} relative (tol "
+            f"{REGIONAL_SCORE_RTOL:g}); shadow Loss/Avg_Error within "
+            f"{w['shadow_err']:.3e} (tol {SHADOW_ERR_TOL:g}), rates within "
+            f"{w['shadow_rate']:.3e} (tol {SHADOW_RATE_TOL:g}), Avg_Offset "
+            f"within {w['shadow_offset']:.3e}; season EM within "
+            f"{w['season_rel']:.3e} relative (tol {SEASON_RTOL:g}); the CPU "
+            f"took {cpu_s:.1f} s, the card {card_s:.1f} s")
+        for note in cmp_["notes"]:
+            log(f"    differing choice: {note}")
+        if cmp_["problems"]:
+            fail(f"the card's regional evaluation disagrees with the "
+                 f"CPU's: {cmp_['problems']}")
     torch.cuda.empty_cache()
     return report
 
@@ -1768,11 +2014,12 @@ def fabricate_site(io_dir: str, views: int, px: int, device) -> dict:
                                           float(dsm.max())]}
 
 
-def _timed(module, name, record, cuda_events=False):
+def _timed(module, name, record, cuda_events=False, label=None):
     """Wrap ``module.name`` so that each call's seconds (or, with
     ``cuda_events``, device ms by CUDA events) and its arguments land in
-    ``record``; returns a function that restores it."""
+    ``record[label or name]``; returns a function that restores it."""
     orig = getattr(module, name)
+    key = label or name
 
     def wrapper(*args, **kw):
         if cuda_events:
@@ -1782,12 +2029,12 @@ def _timed(module, name, record, cuda_events=False):
             out = orig(*args, **kw)
             end.record()
             end.synchronize()
-            record.setdefault(name, []).append(
+            record.setdefault(key, []).append(
                 {"ms": start.elapsed_time(end), "args": args, "kw": kw})
         else:
             t0 = time.perf_counter()
             out = orig(*args, **kw)
-            record.setdefault(name, []).append(
+            record.setdefault(key, []).append(
                 {"s": time.perf_counter() - t0, "args": args, "kw": kw,
                  "out": out})
         return out
@@ -1928,8 +2175,120 @@ def site_analysis(device, cfg, prep, img_size=(256, 256),
     return report
 
 
+def site_regional(device, cfg, prep, img_size=None, season_size=None,
+                  hm_samples=None) -> dict:
+    """``regional_eval`` (quick; the sizes override it) of the model
+    directory ``cfg.logs_dir`` on ``prep`` (what ``cli.prepare_real``
+    returned: the site is not ingested again) into its
+    ``Detailed_Output/``, twice: first with the seconds of each part (host
+    clock around calls that end in a copy to the host) and K3's launches
+    (the count set to 0 just before, read just after) against the
+    chunking; then again under ``torch.profiler`` for the device's busy
+    share."""
+    from season_nerf_torch.eval import (hm_eval, img_eval, regional,
+                                        reports, season_eval, shadow_eval,
+                                        summary_images)
+    from season_nerf_torch.geometry.units import angles_to_vec_from_site
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.render.loading import load_model_dir
+    from season_nerf_torch.render.renderer import Renderer
+    cams, _, _, test_idx, prior, gt, h_range, wc, S = prep
+    renderer = Renderer(load_model_dir(cfg.logs_dir, device=device).model,
+                        n_samples=cfg.n_samples, chunk=cfg.chunk,
+                        classic_solar=cfg.Solar_Type_2)
+    out_dir = os.path.join(cfg.logs_dir, "Detailed_Output")
+    parts = (("overview figures", summary_images, "angle_scatter"),
+             ("overview figures", summary_images, "proto_time_plot"),
+             ("HM surface", hm_eval, "density_surface"),
+             ("greedy_align", hm_eval, "greedy_align"),
+             ("image renders", Renderer, "component_render_by_camera"),
+             ("compositing (images)", img_eval, "images_from_components"),
+             ("alignment", img_eval, "seasonal_align"),
+             ("gauntlet", img_eval, "image_quality_gauntlet"),
+             ("shadow angles", shadow_eval, "eval_shadow_angles"),
+             ("season renders", Renderer, "component_render_by_dir"),
+             ("compositing (season walk)", season_eval,
+              "images_from_components"),
+             ("season EM (signatures, Sinkhorn batch)", season_eval,
+              "season_stability"),
+             ("prototype baseline (exact LPs)", season_eval,
+              "prototype_baseline_em"),
+             ("pickles and reports", regional, "_dump"),
+             ("pickles and reports", regional, "_write_hm_outputs"),
+             ("pickles and reports", reports, "image_report"),
+             ("pickles and reports", reports, "shadow_report"),
+             ("pickles and reports", reports, "season_report"))
+    rec, box = {}, {}
+    sizes = dict(img_size=img_size, season_size=season_size,
+                 hm_samples=hm_samples)
+
+    def run():
+        box["results"] = regional.regional_eval(
+            renderer, renderer.model, cams, test_idx, gt, prior, h_range,
+            out_dir, quick=True, angles_to_vec=angles_to_vec_from_site(wc, S),
+            **sizes)
+
+    restore = [_timed(owner, name, rec, label=label)
+               for label, owner, name in parts]
+    try:
+        ft.trunk_apply.launches = 0
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3 = ft.trunk_apply.launches
+    finally:
+        for r in restore:
+            r()
+    by_part = {label: {"s": float(sum(r["s"] for r in calls)),
+                       "calls": len(calls)} for label, calls in rec.items()}
+    del rec
+    res = box["results"]
+    prof = profile_device(run)
+    img = tuple(img_size or (256, 256))
+    season = tuple(season_size or (64, 64))
+    report = {
+        "img_size": list(img), "season_size": list(season),
+        "hm_samples": hm_samples or 48, "hm_shape": list(gt.shape),
+        "wall_s": wall, "profiled_wall_s": prof["wall_ms"] / 1e3,
+        "device_busy_s": prof["device_busy_ms"] / 1e3,
+        "idle_share": prof["idle_share"], "by_part": by_part,
+        "rest_s": wall - sum(v["s"] for v in by_part.values()),
+        "greedy_steps": float(np.abs(res["HM"]["After"]["Shift_x_y_deg"])
+                              .sum()),
+        "k3_launches": k3,
+        "k3_implied": regional_k3_launches(cams, test_idx, img, season,
+                                           gt.shape, cfg.chunk),
+        "hm_after": res["HM"]["After"], "prior": res["HM"]["Prior"],
+        "shadows": res["Shadows"], "season": res["Seasons"]["Stability"],
+        "baseline": res["Seasons"]["Baseline"].tolist()}
+    log(f"  regional_eval (quick: {len(test_idx)} views at {img}, height "
+        f"map {tuple(gt.shape)} x {report['hm_samples']}, shadows at 16 x 16"
+        f" points, season walk at {season}): {wall:.2f} s; again under the "
+        f"profiler {report['profiled_wall_s']:.2f} s, device busy "
+        f"{report['device_busy_s']:.2f} s (idle share "
+        + (f"{report['idle_share']:.3f})" if report["idle_share"] is not None
+           else "not measured: the profiler traced no device time)"))
+    for label, v in sorted(by_part.items(), key=lambda kv: -kv[1]["s"]):
+        log(f"    {v['s']:8.3f} s  {100 * v['s'] / wall:5.1f} %  {label} "
+            f"({v['calls']} calls)")
+    log(f"    {report['rest_s']:8.3f} s  the rest (scores, signatures, "
+        f"resizes, the shadow statistics)")
+    log(f"    K3 launches {k3} (the chunking implies "
+        f"{report['k3_implied']}); greedy_align {report['greedy_steps']:g} "
+        f"unit moves; HM RMSE {report['hm_after']['RMSE']:.3f} m, prior DSM"
+        f" RMSE {report['prior']['RMSE']:.3f} m; shadow Full_Walk Acc "
+        f"{report['shadows']['Full_Walk']['Acc']:.4f}; season EM mean "
+        f"{report['season']['mean']:.4f}, baseline {report['baseline']}")
+    bad = regional_problems(res, out_dir)
+    if k3 != report["k3_implied"] or bad:
+        fail(f"the real site's regional evaluation: K3 {k3} (implied "
+             f"{report['k3_implied']}), {bad}")
+    return report
+
+
 def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
-                   analysis_kw=None, **model_kw) -> dict:
+                   analysis_kw=None, regional_kw=None, **model_kw) -> dict:
     """The real-site main path: fabricate a DFC-format site, then
     ``cli.run_train`` on it (ingest, camera fits, bounds, the ray table
     with its cache, the lidar DSM, the Space_Carve prior swept on the card,
@@ -1939,9 +2298,10 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
     losses, the validation report of the held-out views, the checkpoint),
     ``finalize`` again and ``render_pretrained`` of the written model
     directory through K3; then the model's evaluation
-    (:func:`site_analysis`, ``analysis_kw`` its sizes).  The launch counts
-    are set to 0 just before ``run_train`` and read just after the render,
-    and again around the evaluation."""
+    (:func:`site_analysis`, ``analysis_kw`` its sizes) and its regional
+    evaluation (:func:`site_regional`, ``regional_kw`` its sizes).  The
+    launch counts are set to 0 just before ``run_train`` and read just
+    after the render, and again around each evaluation."""
     from season_nerf_torch import cli
     from season_nerf_torch.config import Config, get_opts
     from season_nerf_torch.data import ingest, lidar, rays
@@ -1952,6 +2312,7 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
     report = {"views": views, "px": px}
     rec = {}
     analysis_kw = analysis_kw or {}
+    regional_kw = regional_kw or {}
     with tempfile.TemporaryDirectory() as io_dir:
         t0 = time.perf_counter()
         report["site"] = fabricate_site(io_dir, views, px, device)
@@ -2167,6 +2528,9 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
         report["analysis"] = site_analysis(device, cfg,
                                            rec["prepare_real"][0]["out"],
                                            **analysis_kw)
+        report["regional"] = site_regional(device, cfg,
+                                           rec["prepare_real"][0]["out"],
+                                           **regional_kw)
         del rec
     report["carve_median_err"] = carve_recovers_surface(device)
     log(f"  carve of a known surface (synthetic, 6 views, grid 24 x 24 x 16)"
@@ -2264,7 +2628,8 @@ def main():
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
         "launches": (serving["k3_launches"] + validation["k3_launches"]
                      + evaluation["k3_launches"] + real_site["k3_launches"]
-                     + real_site["analysis"]["k3_launches"]),
+                     + real_site["analysis"]["k3_launches"]
+                     + real_site["regional"]["k3_launches"]),
         "max_abs_err": max(r["max_abs_err"]
                            for r in trunk["trunk_infer[bfloat16,fast_sin]"]),
         "ms": flagship["ms"],

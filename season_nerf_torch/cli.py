@@ -9,6 +9,8 @@
         [--Save_Name out.png] [--exact_shadow] [--device cuda]
     python -m season_nerf_torch.cli setup_data --zip_dir ZIPS \
         --IO_Location DIR [--code_data_path DIR]
+    python -m season_nerf_torch.cli eval_region --Model_Locations D [D ...] \
+        [--Output DIR] [--full] [--device cuda]
 
 ``train`` is ``main.py`` (the JAX package's ``run_test``): prepare the
 site, train (resuming from the newest ``Model_<step>.nn`` of the log
@@ -16,21 +18,25 @@ directory under the settings recorded in its opts.json), validate at every
 save point, and write ``Final_Model.nn`` (the last step's or the selected
 save point's weights), ``opts.json``, ``W2C_W2L_H.npy`` and the split
 files, a model directory that ``render`` and the service load; then the
-validation report of the trained model, and its evaluation
-(``analyze_model``): ``Analysis.pickle`` and ``Output/``.  ``lite`` is
+validation report of the trained model, and its evaluation:
+``analyze_model`` into ``Analysis.pickle`` and ``Output/``, then
+``regional_eval`` into ``Detailed_Output/``.  ``lite`` is
 ``train`` over ``lite_defaults()`` (``main_lite.py``).  A site named
 ``SYNTH*`` is the built-in synthetic scene; any other is a DFC2019-format
 site under ``IO_Location`` (``IEEE_Data/Images/*_RGB.tif``,
 ``Cache/<site>/`` with the ``.ikono`` RPCs and ``RPCs/*.IMD``,
 ``IEEE_Data/Track3-Truth/<site>_DSM.{tif,txt}``): ingest, camera fits, ray
 table, the DSM prior (space carving swept on the training device) and
-training.  The regional suite
-(``regional_eval``, ``Detailed_Output/``) is not ported yet.
-``render`` is the port of ``main_run_Season_NeRF.py``: a novel view of a
-model directory (season-adjusted composite times the shadow adjustment),
-written as PNG.  ``setup_data`` is ``main_setup_data.py``: unpack the
-DFC2019 zips and the repository's ``Data.zip`` into that layout.  Serving
-is ``python -m season_nerf_torch.render.serving``.
+training.  ``eval_region`` is ``main_eval_region.py``: evaluate each
+model directory as ``train`` does (``run_test`` with ``eval_only``), then
+merge their ``Detailed_Output/`` into ``--Output`` (default
+``Full_Summary`` beside the first); ``--full`` is parsed and unused, as in
+the JAX package.  ``render`` is the port of ``main_run_Season_NeRF.py``: a
+novel view of a model directory (season-adjusted composite times the
+shadow adjustment), written as PNG.  ``setup_data`` is
+``main_setup_data.py``: unpack the DFC2019 zips and the repository's
+``Data.zip`` into that layout.  Serving is ``python -m
+season_nerf_torch.render.serving``.
 """
 
 from __future__ import annotations
@@ -252,22 +258,24 @@ def run_test(cfg: Config, eval_only: bool = False,
     directory ``cfg.logs_dir``); then evaluate the model that
     ``Final_Model.nn`` holds (the last step's weights, or the save point
     ``final_model_selection`` chose) with :func:`analyze_model` into
-    ``Analysis.pickle`` and ``Output/`` -> (the Trainer or None, the
-    analysis).
+    ``Analysis.pickle`` and ``Output/``, and with :func:`regional_eval`
+    at its quick sizes into ``Detailed_Output/`` -> (the Trainer or None,
+    the analysis).
 
     ``eval_img_size`` (H, W) shrinks the test renders from 256 x 256 and
-    the walks from 128 px to H.  The regional suite (``Detailed_Output/``)
-    is not ported yet, so the run ends after ``Output/``;
-    ``eval_season_size``, which only that suite reads, is accepted and
-    unused."""
+    the walks from 128 px to H, and then both suites take ``cfg.n_samples``
+    for the height map (and the regional suite for the shadow rays);
+    ``eval_season_size`` (H, W) shrinks the regional season walk from
+    64 x 64."""
     from season_nerf_torch.eval.regional import (analyze_model,
+                                                 regional_eval,
                                                  write_analysis_outputs)
     from season_nerf_torch.geometry.units import angles_to_vec_from_site
     from season_nerf_torch.models.tnerf import model_from_config
     from season_nerf_torch.render.renderer import Renderer
     from season_nerf_torch.train.state import load_model_artifact
     prep = _prepare(cfg, device)
-    cams, _, _, test_idx, _, gt_dsm, h_range, wc, S = prep
+    cams, _, _, test_idx, prior, gt_dsm, h_range, wc, S = prep
     if eval_only:
         # the model directory's own opts.json sets the architecture
         model = load_model_dir(cfg.logs_dir, device=device).model
@@ -284,15 +292,42 @@ def run_test(cfg: Config, eval_only: bool = False,
     renderer = Renderer(model, n_samples=cfg.n_samples, chunk=cfg.chunk,
                         classic_solar=cfg.Solar_Type_2,
                         use_hsluv=cfg.use_HSLuv)
+    angles_to_vec = (angles_to_vec_from_site(wc, S) if wc is not None
+                     else None)
     analysis = analyze_model(
         renderer, renderer.model, cams, test_idx, gt_dsm, h_range,
         cfg.logs_dir, hm_samples=cfg.n_samples,
         img_size=tuple(eval_img_size) if eval_img_size else (256, 256),
         walk_size=eval_img_size[0] if eval_img_size else 128,
-        angles_to_vec=(angles_to_vec_from_site(wc, S) if wc is not None
-                       else None))
+        angles_to_vec=angles_to_vec)
     write_analysis_outputs(analysis, os.path.join(cfg.logs_dir, "Output"))
+    regional_eval(
+        renderer, renderer.model, cams, test_idx, gt_dsm, prior, h_range,
+        os.path.join(cfg.logs_dir, "Detailed_Output"), quick=True,
+        img_size=tuple(eval_img_size) if eval_img_size else None,
+        season_size=tuple(eval_season_size) if eval_season_size else None,
+        hm_samples=cfg.n_samples if eval_img_size else None,
+        angles_to_vec=angles_to_vec)
     return trainer, analysis
+
+
+def eval_region(model_locations, output: Optional[str] = None,
+                device="cuda") -> str:
+    """``main_eval_region.py``: :func:`run_test` with ``eval_only`` on
+    each model directory (its opts.json, ``logs_dir`` set to it), then
+    :func:`multi_region_merge` of their ``Detailed_Output/`` into
+    ``output`` (default ``Full_Summary`` beside the first) -> ``output``."""
+    from season_nerf_torch.eval.regional import multi_region_merge
+    region_dirs = []
+    for loc in model_locations:
+        cfg = Config.load_json(os.path.join(loc, "opts.json"))
+        cfg.logs_dir = loc
+        run_test(cfg, eval_only=True, device=device)
+        region_dirs.append(os.path.join(loc, "Detailed_Output"))
+    out = output or os.path.join(os.path.dirname(model_locations[0]),
+                                 "Full_Summary")
+    multi_region_merge(region_dirs, out)
+    return out
 
 
 def setup_data(zip_dir: str, io_location: str, code_data_path=None):
@@ -374,7 +409,22 @@ def main(argv=None):
     d.add_argument("--zip_dir", required=True)
     d.add_argument("--IO_Location", required=True)
     d.add_argument("--code_data_path", default=None)
+    e = sub.add_parser("eval_region", help="evaluate model directories and "
+                                           "merge their regional results")
+    e.add_argument("--Model_Locations", nargs="+", required=True,
+                   help="trained model dirs (opts.json + Final_Model.nn)")
+    e.add_argument("--Output", default=None)
+    e.add_argument("--full", action="store_true",
+                   help="full-quality (slow) evaluation; unused, as in the "
+                        "JAX package")
+    e.add_argument("--device", default="cuda",
+                   help="torch device to evaluate on (default cuda)")
     args = p.parse_args(argv)
+    if args.command == "eval_region":
+        print("merged summary written to",
+              eval_region(args.Model_Locations, args.Output,
+                          device=args.device))
+        return 0
     if args.command == "setup_data":
         print("images in", setup_data(args.zip_dir, args.IO_Location,
                                       args.code_data_path))
@@ -388,8 +438,7 @@ def main(argv=None):
         trainer, _ = run_test(cfg, train_steps=args.train_steps,
                               device=args.device)
         print("trained", trainer.step, "steps; model directory",
-              cfg.logs_dir, "evaluated into",
-              os.path.join(cfg.logs_dir, "Output"))
+              cfg.logs_dir, "evaluated into Output/ and Detailed_Output/")
         return 0
     out_size = (args.Output_Size[0] if len(args.Output_Size) == 1
                 else tuple(args.Output_Size))

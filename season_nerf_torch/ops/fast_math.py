@@ -42,7 +42,7 @@ def poly_sin(y: torch.Tensor) -> torch.Tensor:
     t = y * y
     p = torch.full_like(t, POLY[0])
     for c in POLY[1:]:
-        p = p * t + c
+        p.mul_(t).add_(c)               # in place: p is this call's own
     return y * p
 
 

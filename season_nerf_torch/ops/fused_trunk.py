@@ -72,6 +72,7 @@ class FoldedTrunk:
     inputs: List[str]
     width_pad: int
     out_features: int
+    width: Optional[int] = None         # unpadded; None: width_pad
     _table: Optional[torch.Tensor] = None
     _plan: Optional[torch.Tensor] = None
     _maps: Optional[torch.Tensor] = None
@@ -192,7 +193,7 @@ def fold_trunk(gnerf, dtype: torch.dtype = torch.float32,
                                               dtype=torch.float32))
         inputs.append(kind)
     return FoldedTrunk(weights, biases, inputs, wp,
-                       gnerf.fc9.linear.out_features)
+                       gnerf.fc9.linear.out_features, width)
 
 
 def encode_points(x: torch.Tensor) -> torch.Tensor:
@@ -205,14 +206,25 @@ def trunk_apply_reference(pe: torch.Tensor, folded: FoldedTrunk,
                           fast_sine: bool = False) -> torch.Tensor:
     """The plain version of K3: [N, 64] f32 PE -> [N, out_features] f32.
     Each layer's input is cast to W's dtype, the product accumulates in
-    float32 (bf16 x bf16 products are exact in f32), b' is added in f32."""
+    float32 (bf16 x bf16 products are exact in f32), b' is added in f32.
+    The padding's rows and columns of W' are zero, so only the unpadded
+    ones are computed."""
     sin = fast_sin if fast_sine else torch.sin
+    width, wp = folded.width or folded.width_pad, folded.width_pad
     h = None
-    for w, b, kind in zip(folded.weights, folded.biases, folded.inputs):
-        x = pe if kind == "pe" else (torch.cat([h, pe], 1)
-                                     if kind == "h+pe" else h)
-        h = sin(x.to(w.dtype).float() @ w.float().t() + b)
-    return h[:, :folded.out_features]
+    last = len(folded.weights) - 1
+    for i, (w, b, kind) in enumerate(zip(folded.weights, folded.biases,
+                                         folded.inputs)):
+        n = folded.out_features if i == last else width
+        if kind == "pe":
+            x, w = pe, w[:n]
+        elif kind == "h":
+            x, w = h, w[:n, :width]
+        else:
+            x = torch.cat([h, pe], 1)
+            w = torch.cat([w[:n, :width], w[:n, wp:]], 1)
+        h = sin(x.to(w.dtype).float() @ w.float().t() + b[:n])
+    return h
 
 
 def _launcher():

@@ -39,3 +39,38 @@ def encode_png(u8: np.ndarray) -> bytes:
     return (_SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))
+
+
+GAP = 4                                 # px of white between panels
+
+
+def panel_grid(rows, gap: int = GAP) -> np.ndarray:
+    """Rows of [H, W, 3] panels in [0, 1] (NaN as 0) -> one uint8 image:
+    the panels of a row side by side, ``gap`` white pixels apart, top
+    aligned on a white ground; the rows one under another, as far apart."""
+    lines = []
+    for panels in rows:
+        h = max(p.shape[0] for p in panels)
+        parts = []
+        for i, p in enumerate(panels):
+            p = np.clip(np.nan_to_num(np.asarray(p, float)), 0, 1)
+            pad = np.ones((h, p.shape[1], 3))
+            pad[:p.shape[0]] = p
+            if i:
+                parts.append(np.ones((h, gap, 3)))
+            parts.append(pad)
+        lines.append(np.concatenate(parts, 1))
+    w = max(line.shape[1] for line in lines)
+    out = []
+    for i, line in enumerate(lines):
+        if i:
+            out.append(np.ones((gap, w, 3)))
+        out.append(np.concatenate(
+            [line, np.ones((line.shape[0], w - line.shape[1], 3))], 1))
+    return (np.concatenate(out, 0) * 255 + 0.5).astype(np.uint8)
+
+
+def write_panels(rows, path: str):
+    """:func:`panel_grid` of ``rows`` written to ``path`` as a PNG."""
+    with open(path, "wb") as f:
+        f.write(encode_png(panel_grid(rows)))

@@ -3,8 +3,10 @@ training trunk's forward and backward) against their plain versions, the
 bf16 GEMM inside K1/K2 against the f32 product, the wrappers' checks and
 launch counts, a render on the card against the same
 render on the CPU, training steps on the card through K1/K2, a save
-point's validation on the card (K3) against the CPU, and the
-space-carving sweep on the card against the CPU.
+point's validation on the card (K3) against the CPU, the
+space-carving sweep on the card against the CPU, the evaluation after
+training, and the regional evaluation (the shadow test's sun rays through
+K3, ``regional_eval``, the pairwise metrics) on the card against the CPU.
 
 Every test here needs a CUDA card and skips without one.  Run them on a
 machine with an H100, from the repository root:
@@ -392,11 +394,11 @@ def test_plane_sweep_on_the_card_matches_the_cpu(cuda):
 
 
 # --- the evaluation after training: the batched scorers and analyze_model --
-def _eval_model(dtype, device):
+def _eval_model(dtype, device, seed=0):
     """A seeded width-128, four-layer eval model (``make_model``) on
     ``device``: f32 or the flagship's bf16 with the polynomial sine."""
-    return make_model(Config(fc_units=128, fc_layers=4,
-                             compute_dtype=dtype)).to(device)
+    return make_model(Config(fc_units=128, fc_layers=4, compute_dtype=dtype),
+                      seed=seed).to(device)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-3),
@@ -498,3 +500,95 @@ def test_analyze_model_on_the_card_matches_the_cpu(cuda, tmp_path):
                                  names)
     res = compare_analyses(card, cpu, card_al, cpu_al)
     assert not res["problems"], res
+
+
+# --- the regional evaluation: the shadow test, regional_eval, the metrics --
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3),
+                                       ("bfloat16", RENDER_TOL)])
+def test_shadow_angles_on_the_card_match_the_cpu(cuda, dtype, tol):
+    """The shadow test's sun rays through K3 (``forward_solar`` in eval
+    mode) on the card against the plain versions on the CPU: f32 within
+    TOL's 1e-3, bf16 within RENDER_TOL; one K3 launch per sun angle."""
+    from season_nerf_torch.eval import shadow_eval
+    angles = np.array([[20.0, 100.0], [55.0, 200.0], [85.0, 10.0]])
+    ground = np.stack(np.meshgrid(np.linspace(-1, 1, 16),
+                                  np.linspace(-1, 1, 16), indexing="ij"),
+                      -1).reshape(-1, 2)
+    before = ft.trunk_apply.launches
+    card = shadow_eval.eval_shadow_angles(_eval_model(dtype, cuda).eval(),
+                                          angles, ground, n_samples=48)
+    assert ft.trunk_apply.launches - before == len(angles)
+    cpu = shadow_eval.eval_shadow_angles(_eval_model(dtype, "cpu").eval(),
+                                         angles, ground, n_samples=48)
+    for a, b in zip(card, cpu):
+        assert a.shape == b.shape and np.isfinite(a).all()
+        assert np.abs(a - b).max() <= tol
+
+
+@pytest.mark.parametrize("seed", [8, 9, 10])
+def test_regional_eval_on_the_card_matches_the_cpu(cuda, tmp_path, seed):
+    """``regional_eval`` of a bf16 model on the card (K3) and on the CPU,
+    the scene and the weights from ``seed``: chip_smoke.compare_regionals's
+    tolerances (a differing alignment choice is reported, not held), the
+    height map at the quick sizes' 48 samples, but the season walk's EM
+    statistics within 5e-2 relative: a random model's 12 x 12 renders put
+    pixels on the LAB histogram's bin edges, where the renders' bf16
+    differences (up to RENDER_TOL) move a pixel's mass to a bin 12.5
+    units away (H100 readings over seeds 8, 9, 10: 1.5e-3, 1.6e-2,
+    1.7e-3; heights within 1.7e-5 m); K3's launches as the chunking
+    implies, every file of ``Detailed_Output/``.  The worst differences
+    are printed (``-rP`` shows them)."""
+    from chip_smoke import (_timed, compare_regionals, regional_k3_launches,
+                            regional_problems)
+    from season_nerf_torch.data.synthetic import make_scene
+    from season_nerf_torch.eval import img_eval, regional
+    from season_nerf_torch.render.renderer import Renderer
+    scene = make_scene(n_views=5, img_size=32, grid=24, seed=seed)
+    test_idx = [1, 3]
+    kw = dict(img_size=(16, 16), season_size=(12, 12), hm_samples=48)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        r = Renderer(_eval_model("bfloat16", dev, seed), n_samples=32,
+                     chunk=300)
+        rec = {}
+        restore = _timed(img_eval, "align_errors", rec)
+        before = ft.trunk_apply.launches
+        out = str(tmp_path / str(dev))
+        try:
+            res = regional.regional_eval(r, r.model, scene.cameras, test_idx,
+                                         scene.hm, scene.prior_hm,
+                                         (0.0, 30.0), out, **kw)
+        finally:
+            restore()
+        assert not regional_problems(res, out)
+        runs[str(dev)] = (res, rec["align_errors"],
+                          ft.trunk_apply.launches - before)
+    (card, card_al, k3), (cpu, cpu_al, _) = runs[str(cuda)], runs["cpu"]
+    assert k3 == regional_k3_launches(scene.cameras, test_idx, (16, 16),
+                                      (12, 12), scene.hm.shape, 300)
+    res = compare_regionals(card, cpu, card_al, cpu_al, kw["hm_samples"],
+                            season_rtol=5e-2)
+    print(f"seed {seed}: worst differences {res['worst']}")
+    assert not res["problems"], res
+
+
+def test_pairwise_metrics_on_the_card_match_the_cpu(cuda):
+    """Every pairwise metric on the card (cuFFT, cuDNN's convolution)
+    against the CPU on a seeded stack: 1e-4 (float32 in other orders),
+    the results on the card; SAM of an image against itself within 1e-3
+    (the arccos of a cosine 1 up to rounding: its slope is unbounded
+    there)."""
+    from season_nerf_torch.eval import pairwise_metrics as pm
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.uniform(0.05, 0.95, (2, 3, 32, 32, 3))
+                         .astype(np.float32))
+    diag = np.eye(3, dtype=bool)[None].repeat(2, 0)
+    for name, fn in pm.METRICS.items():
+        card, cpu = fn(x.to(cuda)), fn(x)
+        assert card.device.type == "cuda" and card.shape == (2, 3, 3), name
+        card, cpu = card.cpu().numpy(), cpu.numpy()
+        np.testing.assert_allclose(card[~diag], cpu[~diag], rtol=0,
+                                   atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(card[diag], cpu[diag], rtol=1e-6,
+                                   atol=1e-3 if name == "sam" else 1e-4,
+                                   err_msg=name)

@@ -4,8 +4,9 @@ port's import rule (msgpack, PIL, matplotlib, cv2, imageio, tabulate;
 scipy is inside it: the port calls it where the JAX package does).  Checked
 statically over every source file, then on the CPU in a fresh interpreter
 in which importing any of them raises: by rendering, by training two
-steps, and by evaluating a model into ``Analysis.pickle`` and
-``Output/``."""
+steps, by evaluating a model into ``Analysis.pickle`` and ``Output/``, and
+by ``cli.eval_region`` (``run_test`` with ``eval_only``, ``regional_eval``
+into ``Detailed_Output/``, ``multi_region_merge`` into ``Full_Summary/``)."""
 
 import ast
 import os
@@ -155,6 +156,40 @@ ANALYSIS_SCRIPT = BLOCK + textwrap.dedent("""
 """)
 
 
+REGIONAL_SCRIPT = BLOCK + textwrap.dedent("""
+    import functools
+    from season_nerf_torch import cli
+    from season_nerf_torch.config import Config
+    from season_nerf_torch.data.ingest import save_world_artifact
+    from season_nerf_torch.models.tnerf import model_from_config
+    from season_nerf_torch.train.state import save_model_artifact
+
+    d = os.path.join(tempfile.mkdtemp(), "Region_S")
+    os.makedirs(d)
+    cfg = Config(site_name="SYNTH_S", fc_units=32, fc_layers=2, n_samples=8,
+                 chunk=64, synth_views=3, synth_img_size=16, synth_grid=12,
+                 testing_size=1, compute_dtype="float32")
+    cfg.save_json(os.path.join(d, "opts.json"))
+    torch.manual_seed(0)
+    save_model_artifact(os.path.join(d, "Final_Model.nn"),
+                        model_from_config(cfg).state_dict())
+    save_world_artifact(os.path.join(d, "W2C_W2L_H.npy"), None, None,
+                        (0.0, 30.0))
+    # the evaluation at 8 px: its default sizes take minutes on one thread
+    cli.run_test = functools.partial(cli.run_test, eval_img_size=(8, 8),
+                                     eval_season_size=(8, 8))
+    out = cli.eval_region([d], device="cpu")
+    assert sorted(os.listdir(out)) == [
+        "All_HM_scores.txt", "All_Image_scores.txt", "All_Season_scores.txt",
+        "All_Shadow_scores.txt", "Merged_Results.pickle"], os.listdir(out)
+    assert "Region_Results.pickle" in os.listdir(
+        os.path.join(d, "Detailed_Output"))
+    loaded = sorted(k for k in sys.modules if k.split(".")[0] in BANNED)
+    assert not loaded, loaded
+    print("REGIONAL")
+""")
+
+
 def _run_blocked(script, word):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run(
@@ -174,3 +209,7 @@ def test_port_trains_with_jax_and_the_jax_package_blocked():
 
 def test_port_evaluates_with_jax_and_the_jax_package_blocked():
     _run_blocked(ANALYSIS_SCRIPT, "EVALUATED")
+
+
+def test_port_evaluates_regions_with_jax_and_the_jax_package_blocked():
+    _run_blocked(REGIONAL_SCRIPT, "REGIONAL")
