@@ -13,8 +13,8 @@ Phases, each fatal on failure:
 3. hold each kernel against its plain PyTorch version:
    - K3 at the shapes of the flagship render chunk (width 512, fc1..fc8 +
      fc9, 5120 rays x 96 samples), at the validation chunk (4096 rays x 96
-     samples), at the exact-shadow chunk (5120 points) and at a ragged row
-     count, in bf16 and f32 with the polynomial and the exact sine, with
+     samples), at the fast render's chunk (5120 rays x 32 samples), at the
+     exact-shadow chunk (5120 points) and at a ragged row count, in bf16 and f32 with the polynomial and the exact sine, with
      BatchNorm statistics that are not trivial;
    - K1 and K2 at the flagship training shape (4096 rays x 96 samples,
      tile 2048, width 512, bf16, both sines), in f32 at a reduced row
@@ -24,9 +24,13 @@ Phases, each fatal on failure:
      gradient, a weight gradient) against the f32 product;
    and time the flagship cases with CUDA events beside the kernel's bound
    and its plain version (the GEMMs beside ``torch.matmul``'s bf16 time),
-   K3 in bf16 also at the validation chunk, and at the exact-shadow chunk
-   also by its profiled device time a launch (there the wrapper's host
-   time may exceed the kernel's);
+   K3 in bf16 also at the validation and fast render chunks, and at the
+   exact-shadow chunk also by its profiled device time a launch (there the
+   wrapper's host time may exceed the kernel's); then, in one child
+   process per degree with FAST_SIN_DEGREE set to 9 and to 7, build K3, K1
+   and K2 at that degree (``nvcc`` seconds), hold K3 at the flagship render
+   chunk and K1/K2 at the flagship training shape against their plain
+   versions at that degree and time them beside degree 11's;
 4. the serving main path: write a full-width model directory (``Config()``
    defaults, seeded random weights) with the port's own writer, load it
    onto the card, serve it over HTTP on an ephemeral localhost port and
@@ -35,7 +39,11 @@ Phases, each fatal on failure:
    match the chunking, and that a small render agrees with the CPU path
    (plain versions) on the same model directory; then time 10 warm 128 px
    renders from one client and profile one (device time by kind, the
-   device's idle share);
+   device's idle share); then serve the same directory with
+   ``fast_render=(32, 32)`` (``/render?size=128``, a 16 px exact-shadow
+   frame, ``/dsm?size=128``; K3 twice a chunk), time 10 warm 128 px
+   frames beside the exact ones, hold a 16 px frame against the CPU and
+   profile one;
 5. the training main path: the flagship training config with
    ``pallas_trunk`` through ``Trainer`` on the synthetic site of
    ``bench.py`` in phase 1 (DSM prior on), one warm step and 20 timed
@@ -45,7 +53,14 @@ Phases, each fatal on failure:
    steps of the default trunk (full-batch BatchNorm) for the record; train
    a small bf16 model 3 steps on the CPU and on the card from the same
    weights and draws and compare step 0's gradient of every leaf and the
-   losses;
+   losses; then hierarchical sampling: the flagship config with
+   ``n_importance=32`` on the default trunk, one warm step and 5 timed
+   (K3 once a step: the coarse pass; the fold it rebuilds timed alone; one
+   step profiled), ``pallas_trunk`` with it raising on the card, a small
+   float32 model with ``n_importance`` on the CPU against the card; then
+   the train cell on HSLuv ray colours (the rows against the host's
+   float64 conversion, 4 steps through K1/K2 to a save point, its
+   validation render in sRGB);
 6. the validation path: ``cli.run_train`` with the flagship training
    config (``pallas_trunk``) on the synthetic site of ``bench.py``, 40
    steps, 4 save points, ``final_model_selection="best_geometry"``: at each
@@ -146,6 +161,8 @@ SHADOW_N = 5120                 # points in one exact-shadow chunk
 SUN_ANGLE_N = 16 * 16 * 48      # the quick shadow test's points a sun angle
 SURFACE_N = 4096 * 48           # the quick density surface's points a call
 RAGGED_N = 4133                 # not a multiple of any tile
+FAST_RENDER = (32, 32)          # --fast_render's qualified setting
+FAST_N = 5120 * 32              # points of a fast render chunk's passes
 SEED = 0
 STEADY_PATH = "/render?size=128"
 STEADY_REQUESTS = 10
@@ -286,19 +303,27 @@ def trunk_macs(gnerf) -> int:
 
 
 # --- phase 3: kernels against their plain versions --------------------------
-def check_trunk(model, device) -> dict:
+TRUNK_NS = (FLAGSHIP_N, VAL_N, FAST_N, SURFACE_N, SUN_ANGLE_N, SHADOW_N,
+            RAGGED_N)
+
+
+def check_trunk(model, device, dtypes=(torch.bfloat16, torch.float32),
+                sines=(True, False), ns=TRUNK_NS) -> dict:
+    """K3 against its plain version at every row count of ``ns``, in each
+    of ``dtypes`` with each sine of ``sines``; timed at the flagship render
+    chunk, and in bf16 also at the validation and fast render chunks and
+    (with the profiler too) at the exact-shadow chunk."""
     from season_nerf_torch.ops import fused_trunk as ft
     g = model.G_NeRF_net
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     results = {}
     macs = trunk_macs(g)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         folded = ft.fold_trunk(g, dtype=dtype, device=device)
-        for fast_sine in (True, False):
+        for fast_sine in sines:
             name = (f"trunk_infer[{str(dtype).split('.')[-1]},"
                     f"{'fast_sin' if fast_sine else 'sinf'}]")
-            for n in (FLAGSHIP_N, VAL_N, SURFACE_N, SUN_ANGLE_N, SHADOW_N,
-                      RAGGED_N):
+            for n in ns:
                 pts = torch.rand(n, 3, generator=gen, device=device) * 2 - 1
                 pe = ft.encode_points(pts).contiguous()
                 got = ft.trunk_apply(pe, folded, fast_sine)
@@ -323,7 +348,7 @@ def check_trunk(model, device) -> dict:
                     rec["bound_ms"] = (2.0 * macs * n / PEAK_BF16_FLOPS
                                        * 1e3)
                     rec["bound_by"] = "operations"
-                if n == FLAGSHIP_N or (n == VAL_N
+                if n == FLAGSHIP_N or (n in (VAL_N, FAST_N)
                                        and dtype == torch.bfloat16):
                     reps = 10 if dtype == torch.bfloat16 else 3
                     rec["ms"] = cuda_ms(
@@ -452,12 +477,13 @@ def design_floor_bytes(spec, n, act_bytes, grad_bytes):
     return k1, k2
 
 
-def check_train_kernels(device) -> dict:
+def check_train_kernels(device, only=None) -> dict:
     """K1 and K2 against trunk_fwd_reference / trunk_bwd_reference: at the
     flagship training shape (N = 393,216, tile 2048, width 512, bf16, with
     the polynomial and the exact sine), in f32 at a reduced N, and at a
-    32-wide spec with tile 64 and a ragged tile count (37 tiles).  Times the
-    flagship bf16 case (polynomial sine) beside its bound."""
+    32-wide spec with tile 64 and a ragged tile count (37 tiles); ``only``
+    names a subset of the cases.  Times the flagship bf16 case (polynomial
+    sine) beside its bound."""
     from season_nerf_torch.ops import fused_train as ftr
     flag = ftr.TrunkSpec()
     small = dict(widths=(32, 32, 32, 16), skip_idx=2, pe_dim=16, tile=64)
@@ -472,6 +498,8 @@ def check_train_kernels(device) -> dict:
                                              grad_dtype="float32"), 64 * 37)]
     results = {}
     for case, spec, n in cases:
+        if only is not None and case not in only:
+            continue
         dt = ftr._DTYPES[spec.act_dtype]
         gen = torch.Generator(device=device).manual_seed(SEED + 7)
         if spec.pe_dim == ftr.PE_PAD:
@@ -784,12 +812,86 @@ def profile_render(renderer, size: int) -> dict:
     return {"size": size, **profile_device(lambda: renderer.render_img(*args))}
 
 
-def main_path(model, cfg, device) -> dict:
+def serve_requests(port: int, requests, h_range) -> list:
+    """GET each ``(path, expected K3 launches, body kind, expected shape)``
+    of ``requests`` once; fail on a status other than 200, a body that
+    does not decode to its shape, an empty or non-finite image, heights out
+    of ``h_range``, or K3 launches other than the chunking implies."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    records = []
+    for path, want_launches, kind, shape in requests:
+        before = ft.trunk_apply.launches
+        t0 = time.perf_counter()
+        status, headers, body = get(port, path)
+        secs = time.perf_counter() - t0
+        launches = ft.trunk_apply.launches - before
+        if status != 200:
+            fail(f"GET {path}: HTTP {status}: {body[:500]!r}")
+        if kind == "json":
+            info = json.loads(body)
+            if info.get("status") != "ok":
+                fail(f"GET {path}: {info}")
+            arr = None
+        elif kind == "png":
+            arr = decode_png(body)
+        else:
+            arr = np.load(io.BytesIO(body))
+            if headers.get("X-DSM-Units") != "meters":
+                fail(f"GET {path}: units {headers.get('X-DSM-Units')}")
+        if arr is not None:
+            if arr.shape != shape:
+                fail(f"GET {path}: shape {arr.shape}, want {shape}")
+            finite = np.isfinite(arr.astype(np.float64))
+            if kind == "npy":
+                vals = arr[finite]
+                lo, hi = h_range
+                if vals.size == 0 or vals.min() < lo - 1e-3 \
+                        or vals.max() > hi + 1e-3:
+                    fail(f"GET {path}: heights {vals.size} finite, out of "
+                         f"{h_range}")
+            elif not finite.all() or not arr.any():
+                fail(f"GET {path}: empty or non-finite image")
+        if launches != want_launches:
+            fail(f"GET {path}: {launches} K3 launches, the chunking implies "
+                 f"{want_launches}")
+        records.append({"path": path, "status": status, "seconds": secs,
+                        "bytes": len(body), "k3_launches": launches})
+        log(f"  GET {path}: {status}, {len(body)} B, {secs:.3f} s, K3 "
+            f"launches {launches}")
+    return records
+
+
+def card_vs_cpu_render(card, cpu) -> dict:
+    """A 16 px render by the ``card`` Renderer and by the ``cpu`` one
+    (plain versions) of the same model directory: the max abs difference
+    of each output, each held to RENDER_TOL."""
+    args = ((70.0, 30.0), (45.0, 180.0), 0.5, 16)
+    a, b = card.render_img(*args), cpu.render_img(*args)
+    diffs = {k: float(np.nanmax(np.abs(
+        np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64))))
+        for k in ("Col_Img", "Shadow_Mask", "Height", "PS_Sum")}
+    log(f"  16 px render, card against CPU: {diffs} (tol {RENDER_TOL})")
+    if not all(np.isfinite(v) and v <= RENDER_TOL for v in diffs.values()):
+        fail("the card's render disagrees with the CPU path")
+    return diffs
+
+
+def write_model_dir(d: str, model, cfg, h_range):
+    """A model directory of ``model`` (opts.json, Final_Model.nn, the world
+    artifact with ``h_range``), written by the port's own writers."""
     from season_nerf_torch.data.ingest import save_world_artifact
+    from season_nerf_torch.train.state import save_model_artifact
+    cfg.save_json(os.path.join(d, "opts.json"))
+    save_model_artifact(os.path.join(d, "Final_Model.nn"),
+                        model.state_dict(), meta={"seed": SEED})
+    save_world_artifact(os.path.join(d, "W2C_W2L_H.npy"), None, None,
+                        h_range)
+
+
+def main_path(model, cfg, device) -> dict:
     from season_nerf_torch.ops import fused_trunk as ft
     from season_nerf_torch.render.loading import load_model_dir
     from season_nerf_torch.render.serving import RenderService, make_server
-    from season_nerf_torch.train.state import save_model_artifact
 
     S, chunk = cfg.n_samples, cfg.chunk
     chunks = lambda n: -(-n // chunk)
@@ -805,13 +907,9 @@ def main_path(model, cfg, device) -> dict:
         ("/dsm?size=64&format=png", chunks(64 * 64), "png", (64, 64)),
     ]
     h_range = (0.0, 30.0)
-    report = {"requests": []}
+    report = {}
     with tempfile.TemporaryDirectory() as d:
-        cfg.save_json(os.path.join(d, "opts.json"))
-        save_model_artifact(os.path.join(d, "Final_Model.nn"),
-                            model.state_dict(), meta={"seed": SEED})
-        save_world_artifact(os.path.join(d, "W2C_W2L_H.npy"), None, None,
-                            h_range)
+        write_model_dir(d, model, cfg, h_range)
         t0 = time.perf_counter()
         service = RenderService(d, device=device)
         torch.cuda.synchronize()
@@ -824,46 +922,7 @@ def main_path(model, cfg, device) -> dict:
         thread.start()
         try:
             ft.trunk_apply.launches = 0
-            for path, want_launches, kind, shape in requests:
-                before = ft.trunk_apply.launches
-                t0 = time.perf_counter()
-                status, headers, body = get(port, path)
-                secs = time.perf_counter() - t0
-                launches = ft.trunk_apply.launches - before
-                if status != 200:
-                    fail(f"GET {path}: HTTP {status}: {body[:500]!r}")
-                if kind == "json":
-                    info = json.loads(body)
-                    if info.get("status") != "ok":
-                        fail(f"GET {path}: {info}")
-                    arr = None
-                elif kind == "png":
-                    arr = decode_png(body)
-                else:
-                    arr = np.load(io.BytesIO(body))
-                    if headers.get("X-DSM-Units") != "meters":
-                        fail(f"GET {path}: units {headers.get('X-DSM-Units')}")
-                if arr is not None:
-                    if arr.shape != shape:
-                        fail(f"GET {path}: shape {arr.shape}, want {shape}")
-                    finite = np.isfinite(arr.astype(np.float64))
-                    if kind == "npy":
-                        vals = arr[finite]
-                        lo, hi = h_range
-                        if vals.size == 0 or vals.min() < lo - 1e-3 \
-                                or vals.max() > hi + 1e-3:
-                            fail(f"GET {path}: heights {vals.size} finite, "
-                                 f"out of {h_range}")
-                    elif not finite.all() or not arr.any():
-                        fail(f"GET {path}: empty or non-finite image")
-                if launches != want_launches:
-                    fail(f"GET {path}: {launches} K3 launches, the chunking "
-                         f"implies {want_launches}")
-                rec = {"path": path, "status": status, "seconds": secs,
-                       "bytes": len(body), "k3_launches": launches}
-                report["requests"].append(rec)
-                log(f"  GET {path}: {status}, {len(body)} B, {secs:.3f} s, "
-                    f"K3 launches {launches}")
+            report["requests"] = serve_requests(port, requests, h_range)
             report["k3_launches"] = ft.trunk_apply.launches
             report["latency"] = latency(port, STEADY_PATH, STEADY_REQUESTS)
             lat = report["latency"]
@@ -877,21 +936,72 @@ def main_path(model, cfg, device) -> dict:
             thread.join(timeout=60)
 
         # the same small render on the card and on the CPU (plain versions)
-        cpu = load_model_dir(d, device="cpu").renderer
-        args = ((70.0, 30.0), (45.0, 180.0), 0.5, 16)
-        a = service.renderer.render_img(*args)
-        b = cpu.render_img(*args)
-        diffs = {k: float(np.nanmax(np.abs(
-            np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64))))
-            for k in ("Col_Img", "Shadow_Mask", "Height", "PS_Sum")}
-        report["card_vs_cpu_16px"] = diffs
-        log(f"  16 px render, card against CPU: {diffs} (tol {RENDER_TOL})")
-        if not all(np.isfinite(v) and v <= RENDER_TOL for v in diffs.values()):
-            fail("the card's render disagrees with the CPU path")
+        report["card_vs_cpu_16px"] = card_vs_cpu_render(
+            service.renderer, load_model_dir(d, device="cpu").renderer)
 
         prof = profile_render(service.renderer, 128)
         report["profile_128px"] = prof
         log_profile("one 128 px render", prof)
+    return report
+
+
+def fast_render_path(model, cfg, device, exact_latency) -> dict:
+    """The depth-guided fast render at full width: the model directory of
+    phase 4 served by ``RenderService(fast_render=FAST_RENDER)``.  A chunk
+    runs K3 twice (the density-only window pass and the full pass over
+    n_fine samples); the exact-shadow frame casts its secondary rays from
+    the n_fine samples with ``n_samples`` steps.  Then 10 warm 128 px
+    frames beside the exact path's (``exact_latency``, phase 4 of this
+    run), a 16 px frame on the card against the CPU, and one 128 px frame
+    under the profiler."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.render.loading import load_model_dir
+    from season_nerf_torch.render.serving import RenderService, make_server
+    nc, nf = FAST_RENDER
+    S, chunk = cfg.n_samples, cfg.chunk
+    chunks = lambda n: -(-n // chunk)
+    requests = [
+        ("/render?size=128", 2 * chunks(128 * 128), "png", (128, 128, 3)),
+        ("/render?size=16&exact_shadow=1",
+         2 * chunks(16 * 16) + chunks(16 * 16 * nf) * (S - 1), "png",
+         (16, 16, 3)),
+        ("/dsm?size=128", 2 * chunks(128 * 128), "npy", (128, 128)),
+    ]
+    h_range = (0.0, 30.0)
+    report = {"fast_render": list(FAST_RENDER)}
+    with tempfile.TemporaryDirectory() as d:
+        write_model_dir(d, model, cfg, h_range)
+        service = RenderService(d, fast_render=FAST_RENDER, device=device)
+        info = service.info()
+        if info["fast_render"] != list(FAST_RENDER):
+            fail(f"/info reports fast_render {info['fast_render']}")
+        server = make_server(service, "127.0.0.1", 0)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            ft.trunk_apply.launches = 0
+            report["requests"] = serve_requests(port, requests, h_range)
+            report["k3_launches"] = ft.trunk_apply.launches
+            report["latency"] = lat = latency(port, STEADY_PATH,
+                                              STEADY_REQUESTS)
+            log(f"  GET {STEADY_PATH} x {lat['n']} with fast_render "
+                f"{FAST_RENDER}: median {lat['median_s']:.4f} s, max "
+                f"{lat['max_s']:.4f} s ({lat['rays_per_s']:.0f} rays/s); "
+                f"the exact path in this run: median "
+                f"{exact_latency['median_s']:.4f} s, max "
+                f"{exact_latency['max_s']:.4f} s")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        report["card_vs_cpu_16px"] = card_vs_cpu_render(
+            service.renderer,
+            load_model_dir(d, fast_render=FAST_RENDER,
+                           device="cpu").renderer)
+        prof = profile_render(service.renderer, 128)
+        report["profile_128px"] = prof
+        log_profile("one fast 128 px render", prof)
     return report
 
 
@@ -1019,26 +1129,30 @@ def train_path(device) -> dict:
     return report
 
 
-def cpu_vs_card(table, prior_hm, device) -> dict:
-    """A small bf16 model (width 256, 8 layers, 64 rays x 32 samples, one
-    ghost tile) trained CPU_CARD_STEPS steps on the CPU (plain versions) and
-    on the card (K1/K2) from the same weights and the same draws."""
+def cpu_vs_card(table, prior_hm, device, cfg=None, rtol=CPU_CARD_RTOL,
+                atol=CPU_CARD_ATOL, grad_rtol=CPU_CARD_GRAD_RTOL) -> dict:
+    """A small model trained CPU_CARD_STEPS steps on the CPU (plain
+    versions) and on the card from the same weights and the same draws:
+    by default bf16 through K1/K2 (width 256, 8 layers, 64 rays x 32
+    samples, one ghost tile); step 0's gradients held to ``grad_rtol``,
+    every step's losses to ``rtol`` relative or ``atol``."""
     from season_nerf_torch.train.engine import StepDraws, Trainer
-    cfg = flagship_train_config(fc_units=256, batch_size=64, n_samples=32)
+    cfg = cfg or flagship_train_config(fc_units=256, batch_size=64,
+                                       n_samples=32)
     draws = StepDraws(cfg.seed, len(table), cfg.batch_size, cfg.n_samples,
-                      device="cpu")
+                      device="cpu", n_importance=cfg.n_importance)
     runs, grads = {}, {}
     for dev in ("cpu", device):
         src = (draws if dev == "cpu" else
                lambda step: {k: v.to(device) for k, v in draws(step).items()})
         tr = Trainer(cfg, table, prior_hm=prior_hm, device=dev, draws=src)
         runs[str(dev)] = [{k: float(v) for k, v in tr.train_step().items()}]
-        if tr.statics.trunk_spec is None:
+        if cfg.pallas_trunk and tr.statics.trunk_spec is None:
             fail("the CPU-vs-card model did not take the fused trunk")
         grads[str(dev)] = leaf_grads(tr)
         runs[str(dev)] += [{k: float(v) for k, v in tr.train_step().items()}
                            for _ in range(CPU_CARD_STEPS - 1)]
-    step0_grads = compare_grads(grads["cpu"], grads[str(device)])
+    step0_grads = compare_grads(grads["cpu"], grads[str(device)], grad_rtol)
     cpu, card = runs["cpu"], runs[str(device)]
     worst = 0.0
     for i, (a, b) in enumerate(zip(cpu, card)):
@@ -1046,15 +1160,14 @@ def cpu_vs_card(table, prior_hm, device) -> dict:
             fail(f"CPU and card loss dicts differ in keys at step {i}")
         for k in a:
             err = abs(a[k] - b[k])
-            worst = max(worst, err / max(abs(a[k]), CPU_CARD_ATOL
-                                         / CPU_CARD_RTOL))
-            if not np.isfinite(b[k]) or err > CPU_CARD_ATOL + \
-                    CPU_CARD_RTOL * abs(a[k]):
+            worst = max(worst, err / max(abs(a[k]), atol / rtol))
+            if not np.isfinite(b[k]) or err > atol + rtol * abs(a[k]):
                 fail(f"step {i} {k}: CPU {a[k]} against card {b[k]}")
-    log(f"  {CPU_CARD_STEPS} steps of a 256-wide bf16 model, CPU (plain "
-        f"versions) against the card (K1/K2): worst loss difference "
-        f"{worst:.3e} relative (tol {CPU_CARD_RTOL:g}); Total "
-        f"{[round(r['Total'], 4) for r in cpu]} against "
+    log(f"  {CPU_CARD_STEPS} steps of a {cfg.fc_units}-wide "
+        f"{cfg.compute_dtype} model (pallas_trunk {cfg.pallas_trunk}, "
+        f"n_importance {cfg.n_importance}), CPU (plain versions) against "
+        f"the card: worst loss difference {worst:.3e} relative (tol "
+        f"{rtol:g}); Total {[round(r['Total'], 4) for r in cpu]} against "
         f"{[round(r['Total'], 4) for r in card]}")
     return {"cpu": cpu, "card": card, "worst_rel": worst,
             "step0_grads": step0_grads}
@@ -1070,10 +1183,10 @@ def leaf_grads(tr) -> dict:
             for n, t in leaves.items()}
 
 
-def grad_errors(cpu: dict, card: dict):
+def grad_errors(cpu: dict, card: dict, rtol: float = CPU_CARD_GRAD_RTOL):
     """-> (rel, noise, problems): each leaf's max abs difference over its own
     max |gradient|; each BatchNorm-fed bias's larger max |gradient| over its
-    layer's largest weight gradient; what breaks CPU_CARD_GRAD_RTOL or
+    layer's largest weight gradient; what breaks ``rtol`` or
     BN_BIAS_NOISE, or has a gradient on one side only, or is not finite."""
     rel, noise, problems = {}, {}, []
     for n, a in cpu.items():
@@ -1098,36 +1211,282 @@ def grad_errors(cpu: dict, card: dict):
             scale = float(a.abs().max())
             err = float((a - b).abs().max())
             rel[n] = err / scale if scale > 0 else err
-            if rel[n] > CPU_CARD_GRAD_RTOL:
+            if rel[n] > rtol:
                 problems.append(
                     f"the gradient of {n} differs between the CPU and the "
                     f"card by {err:.3e}, {rel[n]:.3e} of its max |value| "
-                    f"{scale:.3e} (tol {CPU_CARD_GRAD_RTOL:g})")
+                    f"{scale:.3e} (tol {rtol:g})")
     return rel, noise, problems
 
 
-def compare_grads(cpu: dict, card: dict) -> dict:
-    """Step 0's gradients, the CPU's (plain versions) against the card's
-    (K1/K2), both from the same weights and draws -> {"rel", "bn_bias_noise"}
-    of :func:`grad_errors`.  Fails on any problem, and unless the check
-    would catch the card's gradient of one leaf off by 5 %."""
-    rel, noise, problems = grad_errors(cpu, card)
+def compare_grads(cpu: dict, card: dict,
+                  rtol: float = CPU_CARD_GRAD_RTOL) -> dict:
+    """Step 0's gradients, the CPU's (plain versions) against the card's,
+    both from the same weights and draws -> {"rel", "bn_bias_noise"} of
+    :func:`grad_errors` at ``rtol``.  Fails on any problem, and unless the
+    check would catch the card's gradient of one leaf off by 5 %."""
+    rel, noise, problems = grad_errors(cpu, card, rtol)
     if problems:
         fail("step 0: " + "; ".join(problems))
     for n, ref in (("G_NeRF_net.fc9.norm.bias",) * 2,
                    ("G_NeRF_net.fc5.linear.bias",
                     "G_NeRF_net.fc5.linear.weight")):
         off = card[n] + 0.05 * cpu[ref].abs().max()
-        if not grad_errors(cpu, {**card, n: off})[2]:
+        if not grad_errors(cpu, {**card, n: off}, rtol)[2]:
             fail(f"step 0: the gradient check misses a 5 % error in {n}")
     worst = sorted(rel.items(), key=lambda kv: -kv[1])
     log(f"  step 0, CPU against card: {len(rel)} leaf gradients, worst "
         f"relative {', '.join(f'{n} {v:.3e}' for n, v in worst[:3])} "
-        f"(tol {CPU_CARD_GRAD_RTOL:g}), median "
+        f"(tol {rtol:g}), median "
         f"{float(np.median(list(rel.values()))):.3e}; {len(noise)} "
         f"BatchNorm-fed biases, largest noise "
         f"{max(noise.values(), default=0.0):.3e} (tol {BN_BIAS_NOISE:g})")
     return {"rel": rel, "bn_bias_noise": noise}
+
+
+# --- hierarchical sampling (n_importance) --------------------------------------
+# The flagship training config with the importance samples of the
+# reference's 96 + 32, on the default trunk (pallas_trunk refuses them).
+HIER_IMPORTANCE = 32
+HIER_STEPS = 5                  # timed after one warm step
+HIER_FOLD_REPS = 5
+# 3 steps of a small float32 model (width 64, 64 rays x 32 + 16 samples)
+# with n_importance, on the CPU and on the card from the same weights and
+# draws.  float32, since the inverse CDF is discontinuous: a bf16 rounding
+# of a coarse density can move a searchsorted bin, and with it a fine
+# sample.  In float32 the two sides differ by the order of their sums
+# (~1e-6 relative), which the SIREN layers (omega 30) take to ~1e-4 on the
+# visibility, as between the JAX package and the port: the f32 bounds of
+# tests/test_torch_train_step.py (losses 1e-4 relative, gradients 2e-3 of
+# their largest value), taken 10x and 5x to leave room for a draw that falls
+# within that difference of a CDF step and moves one of the 1,024 fine
+# samples of a step to the next bin.
+HIER_SMALL = dict(fc_units=64, batch_size=64, n_samples=32, n_importance=16,
+                  compute_dtype="float32", pallas_trunk=False)
+HIER_RTOL, HIER_ATOL = 1e-3, 1e-5
+HIER_GRAD_RTOL = 1e-2
+
+
+def hierarchical_path(device) -> dict:
+    """Hierarchical sampling at full width: the flagship training config
+    with ``n_importance=HIER_IMPORTANCE`` on the default trunk through
+    ``Trainer`` on the synthetic site of ``bench.py``, one warm step and
+    HIER_STEPS timed; each step's density-only coarse pass is one K3
+    launch (eval mode, the running statistics).  Then the fold that pass
+    rebuilds every step, timed alone; one step under the profiler;
+    ``pallas_trunk`` with ``n_importance`` raising on the card; and the
+    small float32 model on the CPU against the card."""
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.ops.rendering import running_statistics
+    from season_nerf_torch.train.engine import Trainer
+    scene = make_scene(n_views=6, img_size=48, grid=64, seed=0)
+    table, _ = scene_ray_tables(scene, testing_size=1)
+    cfg = flagship_train_config(pallas_trunk=False,
+                                n_importance=HIER_IMPORTANCE)
+    tr = Trainer(cfg, table, prior_hm=scene.prior_hm, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft.trunk_apply.launches = 0
+    losses = [tr.train_step()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HIER_STEPS):
+        losses.append(tr.train_step())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k3 = ft.trunk_apply.launches
+    steps = HIER_STEPS + 1
+    if tr.statics.n_importance != HIER_IMPORTANCE \
+            or tr.statics.trunk_spec is not None:
+        fail(f"the hierarchical step's statics: {tr.statics}")
+    if k3 != steps:
+        fail(f"{steps} hierarchical steps launched K3 {k3} times; each "
+             f"step's coarse pass must launch it once")
+    if not all(finite_losses(l) for l in losses):
+        fail(f"non-finite loss: {losses}")
+    report = dict(
+        steps=steps, k3_launches=k3, n_importance=HIER_IMPORTANCE,
+        points_per_step=cfg.batch_size * (cfg.n_samples + HIER_IMPORTANCE),
+        coarse_points_per_step=cfg.batch_size * cfg.n_samples,
+        step_ms=secs / HIER_STEPS * 1e3,
+        train_rays_per_s=cfg.batch_size * HIER_STEPS / secs,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        first_loss={k: float(v) for k, v in losses[0].items()},
+        last_loss={k: float(v) for k, v in losses[-1].items()})
+    # the fold (and the bf16 kernel's tensor maps) the coarse pass builds
+    # each step: the weights change between steps
+    from season_nerf_torch.ops.fused_trunk import FusedTrunk
+
+    def fold():
+        folded = FusedTrunk(tr.model.G_NeRF_net).folded
+        if folded.dtype == torch.bfloat16 and folded.weights[0].is_cuda:
+            folded.tensor_maps()
+        torch.cuda.synchronize()
+
+    with running_statistics(tr.model):
+        fold()
+        t0 = time.perf_counter()
+        for _ in range(HIER_FOLD_REPS):
+            fold()
+        report["fold_ms"] = (time.perf_counter() - t0) / HIER_FOLD_REPS * 1e3
+    log(f"  {steps} steps with n_importance {HIER_IMPORTANCE} (default "
+        f"trunk), K3 launches {k3}: {report['step_ms']:.1f} ms a step over "
+        f"{HIER_STEPS} timed steps, {report['train_rays_per_s']:.0f} train "
+        f"rays/s, peak {report['peak_mem_gb']:.2f} GB; the fold a step "
+        f"rebuilds {report['fold_ms']:.2f} ms; Total "
+        f"{report['first_loss']['Total']:.3f} -> "
+        f"{report['last_loss']['Total']:.3f}")
+    prof = profile_device(tr.train_step)
+    report["profile_step"] = prof
+    log_profile("one hierarchical training step", prof)
+    del tr
+    torch.cuda.empty_cache()
+
+    # pallas_trunk does not take hierarchical sampling: on the card it raises
+    tr = Trainer(flagship_train_config(n_importance=HIER_IMPORTANCE), table,
+                 prior_hm=scene.prior_hm, device=device)
+    try:
+        tr.train_step()
+    except ValueError as e:
+        report["pallas_refusal"] = str(e)
+        log(f"  pallas_trunk with n_importance on the card: ValueError: {e}")
+    else:
+        fail("pallas_trunk with n_importance > 0 did not raise on the card")
+    del tr
+    torch.cuda.empty_cache()
+
+    report["cpu_vs_card"] = cpu_vs_card(
+        table, scene.prior_hm, device, flagship_train_config(**HIER_SMALL),
+        HIER_RTOL, HIER_ATOL, HIER_GRAD_RTOL)
+    return report
+
+
+# --- HSLuv ray colours (use_HSLuv) ----------------------------------------------
+HSLUV_STEPS = 4
+HSLUV_ROW_TOL = 1e-6            # float32 rounding of colours in [0, 1]
+
+
+def hsluv_path(device) -> dict:
+    """The train cell with ``use_HSLuv``: the synthetic site of
+    ``bench.py`` in an HSLuv ray table (its colours against the host's
+    float64 conversion of the RGB table's), HSLUV_STEPS flagship steps
+    through K1/K2 and ``Trainer.run``'s save point at the last (the
+    ``Testing`` losses and the validation report through K3), then the
+    held-out view's render: sRGB, as its ground truth."""
+    from season_nerf_torch.data.rays import build_ray_table, train_test_split
+    from season_nerf_torch.data.synthetic import make_scene
+    from season_nerf_torch.ops import fused_train as ftr
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.train.engine import Trainer
+    from season_nerf_torch.utils.hsluv import (hsluv_normalized_to_rgb,
+                                               rgb_to_hsluv_normalized)
+    scene = make_scene(n_views=6, img_size=48, grid=64, seed=0)
+    table = build_ray_table(scene.cameras, scene.images, use_hsluv=True)
+    rgb = build_ray_table(scene.cameras, scene.images)
+    row_err = float(np.abs(table.rows[:, 19:22] - rgb_to_hsluv_normalized(
+        rgb.rows[:, 19:22].astype(np.float64))).max())
+    if not np.array_equal(table.rows[:, :19], rgb.rows[:, :19]) \
+            or row_err > HSLUV_ROW_TOL:
+        fail(f"the HSLuv table's rows: colours {row_err:.3e} from the "
+             f"host's conversion (tol {HSLUV_ROW_TOL:g})")
+    train_idx, val_idx = train_test_split(len(scene.cameras), testing_size=1)
+    tt, vt = table.split(train_idx), table.split(val_idx)
+    report = {"rows": len(table), "row_err": row_err}
+    with tempfile.TemporaryDirectory() as d:
+        cfg = flagship_train_config(use_HSLuv=True, n_saves=1, logs_dir=d,
+                                    max_train_steps=HSLUV_STEPS)
+        tr = Trainer(cfg, tt, vt, prior_hm=scene.prior_hm, gt_dsm=scene.hm,
+                     device=device)
+        chunks = sum(-(-int((vt.img_ids == i).sum()) // 4096)
+                     for i in range(len(vt.img_names)))
+        want_k3 = len(tr.save_steps) * (2 + chunks)
+        ft.trunk_apply.launches = 0
+        ftr.trunk_fwd.launches = ftr.trunk_bwd.launches = 0
+        tr.run()
+        torch.cuda.synchronize()
+        report.update(k3_launches=ft.trunk_apply.launches,
+                      k1_launches=ftr.trunk_fwd.launches,
+                      k2_launches=ftr.trunk_bwd.launches)
+        if (report["k3_launches"], report["k1_launches"],
+                report["k2_launches"]) != (want_k3, 2 * HSLUV_STEPS,
+                                           HSLUV_STEPS):
+            fail(f"HSLuv path launches {report}, want K3 {want_k3}, K1 "
+                 f"{2 * HSLUV_STEPS}, K2 {HSLUV_STEPS}")
+        psnr = read_metrics(d).get("Testing/Mean_PSNR", [])
+        if not psnr or not all(np.isfinite(v) for _, v in psnr):
+            fail(f"HSLuv save point: Testing/Mean_PSNR {psnr}")
+        report["mean_psnr"] = psnr
+        rend, gt, _, seen = tr.render_table_image(vt, 0)
+    rows = vt.rows[vt.img_ids == 0]
+    ij = rows[:, 0:2].astype(int)
+    gt_err = float(np.abs(gt[ij[:, 0], ij[:, 1]] - hsluv_normalized_to_rgb(
+        rows[:, 19:22])).max())
+    if not (np.isfinite(rend[seen]).all() and rend.min() >= 0.0
+            and rend.max() <= 1.0) or gt_err > HSLUV_ROW_TOL:
+        fail(f"HSLuv validation render: range [{rend.min()}, {rend.max()}],"
+             f" ground truth {gt_err:.3e} from sRGB")
+    report.update(gt_err=gt_err, render_mean=float(rend[seen].mean()))
+    log(f"  {len(table)} HSLuv rows ({row_err:.3e} from the host's float64 "
+        f"conversion); {HSLUV_STEPS} steps, K1 {report['k1_launches']}, K2 "
+        f"{report['k2_launches']}, K3 {report['k3_launches']}; Mean_PSNR "
+        f"(sRGB) {psnr}; the held-out render in [{rend.min():.4f}, "
+        f"{rend.max():.4f}], its ground truth sRGB")
+    return report
+
+
+# --- the sine's degree (FAST_SIN_DEGREE) ----------------------------------------
+DEGREES = (9, 7)
+
+
+def degree_check(device) -> dict:
+    """In a process whose FAST_SIN_DEGREE selects a degree: build K3, K1
+    and K2 at that degree, and hold each against its plain version (K3 at
+    the flagship render chunk in bf16 with the polynomial sine, K1/K2 at
+    the flagship training shape) with their times."""
+    from season_nerf_torch.config import Config
+    from season_nerf_torch.ops import cuda_build, fast_math
+    from season_nerf_torch.ops import fused_train as ftr
+    from season_nerf_torch.ops import fused_trunk as ft
+    names = [ft.KERNEL, ftr.FWD_KERNEL, ftr.BWD_KERNEL]
+    t0 = time.perf_counter()
+    cuda_build.build(names)
+    nvcc_s = time.perf_counter() - t0
+    log(f"built {', '.join(names)} at degree {fast_math.DEGREE} in "
+        f"{nvcc_s:.1f} s")
+    ptxas = {n: [line.strip() for line in
+                 cuda_build.ptxas_report(n).splitlines()
+                 if "registers" in line or "spill" in line] for n in names}
+    model = make_model(Config()).to(device)
+    trunk = check_trunk(model, device, dtypes=(torch.bfloat16,),
+                        sines=(True,), ns=(FLAGSHIP_N,))
+    train = check_train_kernels(device, only=("flagship,bf16,fast_sin",))
+    return {"degree": fast_math.DEGREE, "nvcc_s": nvcc_s, "ptxas": ptxas,
+            "k3": trunk["trunk_infer[bfloat16,fast_sin]"][0],
+            "k1k2": train["flagship,bf16,fast_sin"]}
+
+
+def degree_children() -> dict:
+    """:func:`degree_check` at each of DEGREES, one child process each,
+    since the port reads FAST_SIN_DEGREE at import as the JAX package
+    does; a child that fails fails the run."""
+    out = {}
+    for degree in DEGREES:
+        env = {**os.environ, "FAST_SIN_DEGREE": str(degree)}
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--degree-child"],
+            env=env, capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            log(f"  [degree {degree}] {line}")
+        if proc.returncode != 0 or not lines:
+            fail(f"the degree-{degree} child failed (rc {proc.returncode}): "
+                 f"{proc.stderr[-3000:]}")
+        rec = json.loads(lines[-1])
+        if rec["degree"] != degree:
+            fail(f"the degree-{degree} child ran at degree {rec['degree']}")
+        out[degree] = rec
+    return out
 
 
 # --- phase 6: the validation path ---------------------------------------------
@@ -2547,10 +2906,16 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--json", default=DEFAULT_JSON,
                    help="where to write every measurement as JSON")
+    p.add_argument("--degree-child", action="store_true",
+                   help=argparse.SUPPRESS)     # see degree_children
     args = p.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     import_port()
+    if args.degree_child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(degree_check(torch.device("cuda"))), flush=True)
+        return
     from season_nerf_torch.config import Config
     from season_nerf_torch.ops import cuda_build, fused_trunk as ft
     from season_nerf_torch.ops import fused_train as ftr
@@ -2577,7 +2942,8 @@ def main():
     names = [ft.KERNEL, ftr.FWD_KERNEL, ftr.BWD_KERNEL]
     t0 = time.perf_counter()
     cuda_build.build(names)
-    log(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s")
+    nvcc_s = time.perf_counter() - t0
+    log(f"built {', '.join(names)} in {nvcc_s:.1f} s")
     ptxas = {n: cuda_build.ptxas_report(n) for n in names}
     for n in names:
         for line in ptxas[n].splitlines():
@@ -2598,13 +2964,36 @@ def main():
     log("the bf16 GEMM of K1 and K2 (TMA + wgmma) against the f32 product:")
     gemms = check_gemms(device)
 
+    log(f"K3, K1 and K2 at FAST_SIN_DEGREE "
+        f"{' and '.join(map(str, DEGREES))}, one child process each:")
+    degrees = degree_children()
+    k3_11 = trunk["trunk_infer[bfloat16,fast_sin]"][0]
+    tk11 = train_kernels["flagship,bf16,fast_sin"]
+    for d, rec in degrees.items():
+        log(f"  degree {d} against 11 (ms): K3 {rec['k3']['ms']:.4f} / "
+            f"{k3_11['ms']:.4f}, K1 {rec['k1k2']['k1_ms']:.3f} / "
+            f"{tk11['k1_ms']:.3f}, K2 {rec['k1k2']['k2_ms']:.3f} / "
+            f"{tk11['k2_ms']:.3f}; nvcc {rec['nvcc_s']:.1f} s / {nvcc_s:.1f}"
+            f" s")
+
     log("main path: HTTP serving at full width")
     serving = main_path(model.cpu(), cfg, device)
+
+    log(f"main path: HTTP serving at full width with fast_render "
+        f"{FAST_RENDER}")
+    fast = fast_render_path(model, cfg, device, serving["latency"])
     del model
     torch.cuda.empty_cache()
 
     log("main path: training the flagship config through K1 and K2")
     training = train_path(device)
+
+    log(f"main path: training the flagship config with n_importance "
+        f"{HIER_IMPORTANCE} (hierarchical sampling)")
+    hierarchical = hierarchical_path(device)
+
+    log("main path: training the flagship config on HSLuv ray colours")
+    hsluv = hsluv_path(device)
 
     log(f"main path: validation at the save points, cli.run_train on the "
         f"synthetic site ({VAL_STEPS} steps, {VAL_SAVES} save points)")
@@ -2626,7 +3015,9 @@ def main():
         "route": "cuda",
         "source": "season_nerf_torch/csrc/trunk_infer.cu",
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
-        "launches": (serving["k3_launches"] + validation["k3_launches"]
+        "launches": (serving["k3_launches"] + fast["k3_launches"]
+                     + hierarchical["k3_launches"] + hsluv["k3_launches"]
+                     + validation["k3_launches"]
                      + evaluation["k3_launches"] + real_site["k3_launches"]
                      + real_site["analysis"]["k3_launches"]
                      + real_site["regional"]["k3_launches"]),
@@ -2641,11 +3032,11 @@ def main():
     tk = train_kernels["flagship,bf16,fast_sin"]
     for key, name, line, launches in (
             ("k1", ftr.FWD_KERNEL, 238, training["k1_launches"]
-             + validation["k1_launches"] + evaluation["k1_launches"]
-             + real_site["k1_launches"]),
+             + hsluv["k1_launches"] + validation["k1_launches"]
+             + evaluation["k1_launches"] + real_site["k1_launches"]),
             ("k2", ftr.BWD_KERNEL, 273, training["k2_launches"]
-             + validation["k2_launches"] + evaluation["k2_launches"]
-             + real_site["k2_launches"])):
+             + hsluv["k2_launches"] + validation["k2_launches"]
+             + evaluation["k2_launches"] + real_site["k2_launches"])):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2662,10 +3053,13 @@ def main():
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
-                   "cuda": torch.version.cuda, "ptxas": ptxas,
-                   "trunk": trunk, "serving": serving,
+                   "cuda": torch.version.cuda, "nvcc_s": nvcc_s,
+                   "ptxas": ptxas,
+                   "trunk": trunk, "serving": serving, "fast_render": fast,
                    "train_kernels": train_kernels, "gemms": gemms,
-                   "training": training, "validation": validation,
+                   "degrees": degrees, "training": training,
+                   "hierarchical": hierarchical, "hsluv": hsluv,
+                   "validation": validation,
                    "evaluation": evaluation, "real_site": real_site,
                    "host_packages": found,
                    "kernels": kernels,

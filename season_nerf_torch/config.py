@@ -84,7 +84,7 @@ class Config:
     phase4_prior_keepalive: float = 0.0
     phase4_keepalive_barron: bool = False
     pallas_trunk: bool = False
-    fast_sine: bool = True             # degree-11 polynomial sine activation
+    fast_sine: bool = True             # polynomial sine (FAST_SIN_DEGREE, 11)
     prefetch_device: bool = True
 
     def resolve_dirs(self, create=True):

@@ -9,11 +9,11 @@ The counterpart of ``season_nerf_tpu/data/rays.py``.  Row layout:
   [11:14] sun direction (unit)
   [14:18] time encoding (cos/sin year frac, cos/sin day frac)
   [18:19] sample weight
-  [19:22] GT color (RGB in [0, 1])
+  [19:22] GT color (RGB in [0, 1], or normalized HSLuv with ``use_HSLuv``)
 
 A table is cached as the JAX package's ``.npz`` (the same keys), so a cache
-that either package writes loads in the other.  Not ported yet:
-HSLuv-encoded colors.
+that either package writes loads in the other (an HSLuv table's name
+carries ``_hsluv``, :func:`cache_path`).
 """
 
 from __future__ import annotations
@@ -89,15 +89,18 @@ def build_ray_table(cams, images, downscales=None, weights=None,
                     cache_path=None, use_hsluv=False) -> RayTable:
     """The table of a list of scaled cameras and their images, each camera
     at its ``downscales`` entry (default 1) with its ``weights`` entry
-    (default 1) as the rows' sample weight.  With ``cache_path``, a table
-    cached there is loaded, and a built one is saved there."""
-    if use_hsluv:
-        raise NotImplementedError("HSLuv-encoded ray colors are not ported "
-                                  "yet (use_HSLuv)")
+    (default 1) as the rows' sample weight.  ``use_hsluv`` stores the
+    colors as normalized HSLuv (float64 on the host, then float32).  With
+    ``cache_path``, a table cached there is loaded, and a built one is
+    saved there."""
     if cache_path and os.path.exists(cache_path):
         return RayTable.load(cache_path)
     downscales = downscales or [1] * len(cams)
     weights = weights if weights is not None else np.ones(len(cams))
+    if use_hsluv:
+        from season_nerf_torch.utils.hsluv import rgb_to_hsluv_normalized
+        images = [rgb_to_hsluv_normalized(img[..., :3]).astype(np.float32)
+                  for img in images]
     all_rows = [rays_from_image(cam, img, downscale=d, weight=w)
                 for cam, img, d, w in zip(cams, images, downscales, weights)]
     table = RayTable(

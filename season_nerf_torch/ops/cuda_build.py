@@ -2,10 +2,14 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/season_nerf_torch/lib<name>-<digest>.so`` at the repository
-root, the first time it is needed.  The digest covers the source and every
-header in ``csrc/``, so an edited source is rebuilt and never loaded stale.
-``nvcc`` runs with ``-Xptxas -v``; its report (registers, shared memory,
-spills) is kept beside the library as ``<name>.ptxas.txt``.
+root, the first time it is needed.  The digest covers the source, every
+header in ``csrc/`` and the sine's degree, so an edited source is rebuilt and
+a library is never loaded stale or at another degree.  ``nvcc`` runs with
+``-DFAST_SIN_DEGREE=<d>``, the degree ``ops/fast_math`` read from the
+environment (11 unless ``FAST_SIN_DEGREE`` says 9 or 7: ``csrc/fast_sin.cuh``
+is K0 inside every kernel), and with ``-Xptxas -v``; its report (registers,
+shared memory, spills) is kept beside the library as
+``<name>.deg<d>.ptxas.txt``.
 
 No ``--use_fast_math``: it would turn ``sinf`` into ``__sinf``, which
 loses accuracy beyond +-pi.
@@ -21,10 +25,13 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+from season_nerf_torch.ops.fast_math import DEGREE
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "season_nerf_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DFAST_SIN_DEGREE={DEGREE}")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -45,11 +52,16 @@ def library_path(name: str) -> Path:
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
+    h.update(f"FAST_SIN_DEGREE={DEGREE}".encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _ptxas_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}.deg{DEGREE}.ptxas.txt"
+
+
 def ptxas_report(name: str) -> str:
-    path = BUILD_DIR / f"{name}.ptxas.txt"
+    path = _ptxas_path(name)
     return path.read_text() if path.exists() else ""
 
 
@@ -73,7 +85,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     failed = []
     for n, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
-        (BUILD_DIR / f"{n}.ptxas.txt").write_text(log)
+        _ptxas_path(n).write_text(log)
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {n}.cu (rc {proc.returncode}):"
                           f"\n{log}")

@@ -11,15 +11,20 @@ reference's ``Solar_Type_2``):
 The model's mode is the JAX ``train`` flag.  In training mode the caller
 passes the sample jitter; a ``trunk_spec`` sends the trunk through the
 fused training kernels (``ops/fused_train``, ghost BatchNorm); a
-``prior_hm`` adds the DSM-prior branches and the trust merge.
+``prior_hm`` adds the DSM-prior branches and the trust merge;
+``n_importance`` adds hierarchical samples, placed by a density-only
+coarse pass in eval mode (through the inference trunk, K3 on the card).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from season_nerf_torch.models.tnerf import supervised_sigma
-from season_nerf_torch.ops.sampling import out_of_cube, sample_coarse
+from season_nerf_torch.ops.sampling import (out_of_cube, sample_coarse,
+                                            sample_fine)
 
 
 def transmittance(rho, deltas):
@@ -62,20 +67,53 @@ def broadcast_rays(a, n_samples):
     return a[:, None, :].expand(R, n_samples, D).reshape(-1, D)
 
 
-def eval_rays(model, tops, bots, sun, t4, *, n_samples,
-              classic_solar=False, mask_out_of_cube=False, jitter=None,
-              prior_hm=None, model_trust=1.0, trunk_spec=None):
-    """Render a batch of rays (the JAX ``eval_rays``, no importance
-    samples).
+@contextlib.contextmanager
+def running_statistics(model):
+    """``model`` in eval mode and without autograd for the block: its
+    BatchNorms normalise with their running statistics and update none.
+    Afterwards every submodule has the mode it had; a model that was
+    training drops the fold the block built (``GNeRF.train``), since the
+    weights change before its next evaluation."""
+    modes = [(m, m.training) for m in model.modules()]
+    if model.training:
+        model.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        if modes[0][1]:
+            model.train()
+            for m, mode in modes:
+                m.training = mode
+
+
+def eval_rays(model, tops, bots, sun, t4, *, n_samples, n_importance=0,
+              fine_u=None, fine_shift=None, classic_solar=False,
+              mask_out_of_cube=False, jitter=None, prior_hm=None,
+              model_trust=1.0, trunk_spec=None):
+    """Render a batch of rays (the JAX ``eval_rays``).
 
     tops/bots/sun: [R, 3]; t4: [R, 4]; ``jitter`` [R, S] in training.
-    ``mask_out_of_cube`` zeroes the step of samples outside the unit cube
-    (whole-image renders, whose edge rays leave the volume).  ``prior_hm``
-    [H, W] adds the supervised and trust-merged branches of the prior
-    phase.  ``trunk_spec`` (training mode only) runs the trunk through
-    K1/K2.  Returns the results dict."""
+    ``n_importance`` > 0 adds that many samples per ray by
+    :func:`sample_fine` from the draws ``fine_u`` [R, n_importance] and
+    ``fine_shift`` [R, n_importance, 1], weighted by the hit probabilities
+    of a density-only pass over the S coarse samples in eval mode without
+    gradient (:func:`running_statistics`, in either mode of the model, as
+    the JAX package's ``train=False`` pass); everything after sees the
+    S + n_importance merged samples.  ``mask_out_of_cube`` zeroes the step
+    of samples outside the unit cube (whole-image renders, whose edge rays
+    leave the volume).  ``prior_hm`` [H, W] adds the supervised and
+    trust-merged branches of the prior phase.  ``trunk_spec`` (training
+    mode only) runs the trunk through K1/K2.  Returns the results dict."""
     R, S = tops.shape[0], n_samples
     pts, deltas = sample_coarse(tops, bots, S, jitter=jitter)
+    if n_importance > 0:
+        with running_statistics(model):
+            rho_c = model.sigma_only(pts.reshape(-1, 3)).reshape(R, S, 1)
+        _, _, ps_c = pv_pe_ps(rho_c, deltas)
+        pts, deltas = sample_fine(tops, bots, pts, ps_c[..., 0],
+                                  n_importance, fine_u, fine_shift)
+        S = S + n_importance
     if mask_out_of_cube:
         deltas = torch.where(out_of_cube(pts)[..., None],
                              torch.zeros_like(deltas), deltas)

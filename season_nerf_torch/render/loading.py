@@ -33,9 +33,11 @@ class LoadedModel:
 
 def load_model_dir(model_dir: str, n_samples: Optional[int] = None,
                    chunk: Optional[int] = None,
+                   fast_render: Optional[Tuple[int, int]] = None,
                    device="cuda") -> LoadedModel:
     """Load ``model_dir`` onto ``device`` (``cuda`` unless the caller asks
-    for ``cpu``).  ``n_samples``/``chunk`` override the recorded values."""
+    for ``cpu``).  ``n_samples``/``chunk`` override the recorded values;
+    ``fast_render=(n_coarse, n_fine)`` makes the Renderer depth-guided."""
     device = torch.device(device)
     cfg = Config.load_json(os.path.join(model_dir, "opts.json"))
     sd, _ = load_model_artifact(os.path.join(model_dir, "Final_Model.nn"))
@@ -54,6 +56,6 @@ def load_model_dir(model_dir: str, n_samples: Optional[int] = None,
     renderer = Renderer(model, n_samples=n_samples or cfg.n_samples,
                         chunk=chunk or cfg.chunk,
                         classic_solar=cfg.Solar_Type_2,
-                        use_hsluv=cfg.use_HSLuv)
+                        use_hsluv=cfg.use_HSLuv, fast_render=fast_render)
     return LoadedModel(cfg=cfg, model=model, renderer=renderer,
                        angles_to_vec=angles_to_vec, h_range=h_range)

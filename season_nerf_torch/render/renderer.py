@@ -8,7 +8,13 @@ The render surfaces of ``season_nerf_tpu/render/renderer.py``:
 - per-sample raw component capture (``component_render``, by view
   direction or through a fitted camera) and its compositing into display
   images (``images_from_components``);
-- free perspective cameras (``render_perspective``).
+- free perspective cameras (``render_perspective``);
+- opt-in depth-guided fast rendering (``Renderer(fast_render=(n_coarse,
+  n_fine))``): a density-only pass over ``n_coarse`` samples finds each
+  ray's surface window (:func:`surface_window`), then the full network
+  runs on ``n_fine`` samples inside it (:func:`render_chunk_outputs_fast`),
+  on the composite and the component paths alike.  The evaluation never
+  sets it, so its scores always come from the uniform sampler.
 
 Rays are processed ``chunk`` rays per dispatch on the composite paths and
 ``chunk`` points per dispatch on the exact-solar path; every dispatch runs
@@ -19,7 +25,7 @@ device until the frame is done, then cross to the host once.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,16 +133,103 @@ def render_chunk_outputs(model, tops, bots, sun, t4, *, n_samples: int,
     return res
 
 
+def surface_window(model, tops, bots, n_coarse: int,
+                   support_frac: float = 0.05, margin_bins: float = 1.5):
+    """Each ray's surface window from a density-only pass over
+    ``n_coarse`` samples spanning [0, 1] inclusive: the smallest interval
+    of ray fractions covering every sample whose hit probability exceeds
+    ``support_frac`` of the ray's largest (both modes of a bimodal ray),
+    padded by ``margin_bins`` coarse bins.  A ray with no surface evidence
+    (largest hit probability under 1e-6) takes the whole [0, 1]; then the
+    window is clipped into [0, 1] and to at least two coarse bins.
+    -> (t_lo, t_hi), fractions along top -> bot, each [R]."""
+    R = tops.shape[0]
+    pts_c, deltas_c = sample_coarse(tops, bots, n_coarse, include_end=True)
+    rho_c = model.sigma_only(pts_c.reshape(-1, 3)).reshape(R, n_coarse, 1)
+    ps_c = rendering.pv_pe_ps(rho_c, deltas_c)[2][..., 0]      # [R, Sc]
+    ts_c = torch.linspace(0.0, 1.0, n_coarse, device=tops.device)[None]
+    max_ps = torch.amax(ps_c, dim=1, keepdim=True)
+    support = ps_c > support_frac * max_ps
+    pad = margin_bins / n_coarse
+    t_lo = torch.amin(torch.where(support, ts_c, 1.0), dim=1) - pad
+    t_hi = torch.amax(torch.where(support, ts_c, 0.0), dim=1) + pad
+    empty = max_ps[:, 0] < 1e-6
+    t_lo = torch.where(empty, 0.0, t_lo)
+    t_hi = torch.where(empty, 1.0, t_hi)
+    min_w = 2.0 / n_coarse
+    t_lo = torch.clamp(t_lo, 0.0, 1.0 - min_w)
+    t_hi = torch.clamp(torch.maximum(t_hi, t_lo + min_w), 0.0, 1.0)
+    return t_lo, t_hi
+
+
+def window_points(tops, bots, t_lo, t_hi, n_fine: int):
+    """``n_fine`` bin-centre samples of each ray's [t_lo, t_hi] window ->
+    (pts [R, n_fine, 3], deltas [R, n_fine, 1], constant per ray)."""
+    R = tops.shape[0]
+    ts_f = (torch.arange(n_fine, dtype=torch.float32, device=tops.device)
+            + 0.5) / n_fine
+    tt = (t_lo[:, None] + (t_hi - t_lo)[:, None] * ts_f[None, :])[..., None]
+    pts = tops[:, None, :] * (1.0 - tt) + bots[:, None, :] * tt
+    raylen = torch.sqrt(torch.sum((tops - bots) ** 2, dim=1))
+    deltas = ((t_hi - t_lo) * raylen / n_fine)[:, None, None]
+    return pts, deltas.expand(R, n_fine, 1)
+
+
+def render_chunk_outputs_fast(model, tops, bots, sun, t4, *, n_coarse: int,
+                              n_fine: int, classic_solar: bool,
+                              with_samples: bool = False,
+                              support_frac: float = 0.05,
+                              margin_bins: float = 1.5):
+    """The contract of :func:`render_chunk_outputs` by depth-guided
+    sampling: :func:`surface_window` from ``n_coarse`` density-only
+    samples, then the full network on ``n_fine`` samples inside the window
+    (:func:`window_points`, steps zeroed outside the cube), composited as
+    the uniform path composites."""
+    R = tops.shape[0]
+    t_lo, t_hi = surface_window(model, tops, bots, n_coarse, support_frac,
+                                margin_bins)
+    pts, deltas = window_points(tops, bots, t_lo, t_hi, n_fine)
+    deltas = torch.where(out_of_cube(pts)[..., None],
+                         torch.zeros_like(deltas), deltas)
+    probs_r, sun_pe_r, sky_raw_r = model.ray_consts(sun, t4)
+    bc = rendering.broadcast_rays
+    out = model(pts.reshape(-1, 3), None, None, probs=bc(probs_r, n_fine),
+                sun_pe=bc(sun_pe_r, n_fine), sky_raw=bc(sky_raw_r, n_fine))
+    rho = out["rho"].reshape(R, n_fine, 1)
+    col = out["col"].reshape(R, n_fine, -1)
+    vis = out["vis"].reshape(R, n_fine, 1)
+    sky = out["sky"].reshape(R, n_fine, -1)
+    _, _, ps = rendering.pv_pe_ps(rho, deltas)
+    if classic_solar:
+        rendered = rendering.composite_classic(ps, col, vis, sky)
+    else:
+        gate = rendering.gated_visibility(ps, vis)
+        rendered = torch.sum(ps * col, dim=1) * (
+            gate + (1.0 - gate) * torch.mean(sky, dim=1))
+    surf, _ = rendering.expected_surface(ps, pts, deltas)
+    res = {"rendered": rendered,
+           "shadow_raw": torch.sum(ps * vis, dim=1)[:, 0],
+           "height": surf[:, 2], "ps_sum": torch.sum(ps, dim=(1, 2))}
+    if with_samples:
+        res["ps"] = ps[:, :, 0]
+        res["pts"] = pts
+    return res
+
+
 class Renderer:
     """Whole-image renderer over a trained T-NeRF (a ``TNeRF`` in eval mode
-    whose weights already sit on the device to render on)."""
+    whose weights already sit on the device to render on).
+    ``fast_render=(n_coarse, n_fine)`` renders the composite and the
+    component paths depth-guided (None: the uniform ``n_samples``)."""
 
     def __init__(self, model, n_samples=96, chunk=5_120, classic_solar=False,
                  sun_frame: Optional[np.ndarray] = None,
-                 use_hsluv: bool = False):
+                 use_hsluv: bool = False,
+                 fast_render: Optional[Tuple[int, int]] = None):
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.n_samples = n_samples
+        self.fast_render = tuple(fast_render) if fast_render else None
         self.chunk = max(chunk, 16)     # rays (or exact-solar points) per
         #                                 dispatch; output is chunk-invariant
         self.classic_solar = classic_solar
@@ -151,16 +244,34 @@ class Renderer:
 
     # -- per-chunk programs --------------------------------------------------
     def _full_chunk(self, tops, bots, sun, t4, with_samples=False):
+        if self.fast_render is not None:
+            nc, nf = self.fast_render
+            return render_chunk_outputs_fast(
+                self.model, tops, bots, sun, t4, n_coarse=nc, n_fine=nf,
+                classic_solar=self.classic_solar, with_samples=with_samples)
         return render_chunk_outputs(self.model, tops, bots, sun, t4,
                                     n_samples=self.n_samples,
                                     classic_solar=self.classic_solar,
                                     with_samples=with_samples)
 
+    @property
+    def _out_samples(self):
+        """Samples a ray in the per-sample outputs: ``n_fine`` under fast
+        rendering, else ``n_samples``."""
+        return self.fast_render[1] if self.fast_render else self.n_samples
+
     def _component_chunk(self, tops, bots, sun, t4):
         """Per-sample raw components (forward_separate), with the steps of
-        samples outside the cube zeroed."""
-        S, R, C = self.n_samples, tops.shape[0], self.model.n_classes
-        pts, deltas = sample_coarse(tops, bots, S, include_end=True)
+        samples outside the cube zeroed; under fast rendering the samples
+        of each ray's surface window."""
+        R, C = tops.shape[0], self.model.n_classes
+        if self.fast_render is not None:
+            nc, S = self.fast_render
+            t_lo, t_hi = surface_window(self.model, tops, bots, nc)
+            pts, deltas = window_points(tops, bots, t_lo, t_hi, S)
+        else:
+            S = self.n_samples
+            pts, deltas = sample_coarse(tops, bots, S, include_end=True)
         deltas = torch.where(out_of_cube(pts)[..., None],
                              torch.zeros_like(deltas), deltas)
         probs_r, sun_pe_r, sky_raw_r = self.model.ray_consts(sun, t4)
@@ -180,9 +291,9 @@ class Renderer:
 
     def _exact_solar_chunk(self, pts, sun_vec):
         """Exact secondary-ray solar transmittance at [n, 3] points: a sun
-        ray from each point to z=+1, sigma integrated over its S-1 steps,
-        one network pass per step (the O(n*S) secondary points are never
-        held at once)."""
+        ray from each point to z=+1, sigma integrated over its S-1 steps
+        (S = ``n_samples``, under fast rendering too), one network pass per
+        step (the O(n*S) secondary points are never held at once)."""
         S = self.n_samples
         k = (1.0 - pts[:, 2]) / sun_vec[2]
         tops = pts + k[:, None] * sun_vec[None, :]
@@ -270,7 +381,7 @@ class Renderer:
             # secondary sun rays from the same samples the composite used
             exact = self._exact_solar_points(
                 res["pts"].reshape(-1, 3), sun_vec).reshape(
-                    -1, self.n_samples)
+                    -1, self._out_samples)
             ex = np.zeros((out_size, out_size), np.float32)
             ex[ij] = np.sum(res["ps"] * exact, 1)
             out["Exact_Shadow_Mask"] = ex
@@ -313,7 +424,7 @@ class Renderer:
         if exact_solar:
             res["exact_solar"] = self._exact_solar_points(
                 res["pts"].reshape(-1, 3), sun_vec).reshape(
-                    n, self.n_samples, 1)
+                    n, self._out_samples, 1)
         # marks the color space for images_from_components
         res["hsluv"] = self.use_hsluv
         return res

@@ -19,7 +19,10 @@ One render at a time holds the device (a lock); the threaded server keeps
 health checks from queueing behind a frame.  Stdlib only: ``http.server``
 and the port's own PNG encoder.
 
-    python -m season_nerf_torch.render.serving --Model_Location DIR
+    python -m season_nerf_torch.render.serving --Model_Location DIR \
+        [--fast_render N_COARSE N_FINE]
+
+``--fast_render`` serves every frame depth-guided (``render/renderer``).
 """
 
 from __future__ import annotations
@@ -71,9 +74,12 @@ class RenderService:
     LAYERS = ("season", "base", "shadow")
 
     def __init__(self, model_dir: str, n_samples: Optional[int] = None,
-                 wedge_timeout: Optional[float] = 600.0, device="cuda"):
+                 wedge_timeout: Optional[float] = 600.0,
+                 fast_render: Optional[Tuple[int, int]] = None,
+                 device="cuda"):
         self.model_dir = os.path.abspath(model_dir)
-        loaded = load_model_dir(model_dir, n_samples=n_samples, device=device)
+        loaded = load_model_dir(model_dir, n_samples=n_samples,
+                                fast_render=fast_render, device=device)
         self.cfg, self.renderer = loaded.cfg, loaded.renderer
         self.angles_to_vec, self.h_range = (loaded.angles_to_vec,
                                             loaded.h_range)
@@ -97,6 +103,8 @@ class RenderService:
                 "site_name": self.cfg.site_name,
                 "exp_name": self.cfg.exp_name,
                 "n_samples": self.renderer.n_samples,
+                "fast_render": list(self.renderer.fast_render)
+                               if self.renderer.fast_render else None,
                 "fc_units": self.cfg.fc_units,
                 "classic_solar": bool(self.cfg.Solar_Type_2),
                 "use_HSLuv": bool(self.cfg.use_HSLuv),
@@ -277,10 +285,14 @@ def main(argv=None):
                    help="healthz reports 503/wedged once a single render "
                         "has held the device this many seconds "
                         "(0 disables)")
+    p.add_argument("--fast_render", type=int, nargs=2, default=None,
+                   metavar=("N_COARSE", "N_FINE"),
+                   help="depth-guided fast rendering for every served "
+                        "frame")
     args = p.parse_args(argv)
     service = RenderService(args.Model_Location, n_samples=args.n_samples,
                             wedge_timeout=args.wedge_timeout or None,
-                            device=args.device)
+                            fast_render=args.fast_render, device=args.device)
     if args.warmup:
         service.render_view((70, 0), (45, 180), 0.5, size=32)
     server = make_server(service, args.host, args.port)

@@ -9,9 +9,11 @@ The counterpart of ``season_nerf_tpu/train/engine.py``'s ``Trainer``:
   Season-NeRF loss (``train/losses``), backward, both updates;
 - ``pallas_trunk`` runs the trunk through the hand-written kernels K1/K2
   (ghost BatchNorm, ``ops/fused_train``) where ``spec_for_model`` accepts
-  the model; where it does not, :func:`fused_trunk_spec` raises on the card
-  and, on the CPU, warns and keeps the default trunk as the JAX package
-  does;
+  the model and ``n_importance`` is 0; where not, :func:`fused_trunk_spec`
+  raises on the card and, on the CPU, warns and keeps the default trunk as
+  the JAX package does;
+- ``n_importance`` > 0 trains with hierarchical sampling: a density-only
+  pass in eval mode places the extra samples (``ops/rendering.eval_rays``);
 - full-state checkpoints at the save points, ``resume``, and ``finalize``
   writing ``Final_Model.nn``.
 
@@ -38,14 +40,13 @@ rays) come from ``val_draws(step)``, a stream of their own
 (:class:`ValDraws`), so validation never moves a training draw.
 ``finalize`` ships the last step's weights or, with
 ``final_model_selection="best_geometry[_on_decay]"``, the save point whose
-renders scored the lowest height error against the prior.
-
-Not ported yet: hierarchical sampling.
+renders scored the lowest height error against the prior.  A model trained
+on HSLuv colors (``use_HSLuv``) is validated in sRGB: its renders and the
+held-out rows are converted back before PSNR, as in the JAX package.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 import os
 import warnings
@@ -114,19 +115,34 @@ def _solar_draws(g, n: int, device) -> Dict[str, torch.Tensor]:
             "solar_t": u(n, 2) * (2.0 * math.pi)}
 
 
+def _fine_draws(g, n: int, n_importance: int, device):
+    """The importance samples' ``fine_u`` [n, n_importance] and
+    ``fine_shift`` [n, n_importance, 1]; none at ``n_importance`` 0."""
+    if n_importance <= 0:
+        return {}
+    return {"fine_u": torch.rand((n, n_importance), generator=g,
+                                 device=device),
+            "fine_shift": torch.rand((n, n_importance, 1), generator=g,
+                                     device=device)}
+
+
 class StepDraws:
     """Every random number of one training step from a generator on
     ``device`` seeded by ``(seed, step)``: the batch indices (or, with
     ``weighted``, the uniform ``u`` of the inverse-CDF draw), the camera
     and solar jitter [R, S] and the solar rays' angles, starts and times
-    (the names ``train/losses`` reads)."""
+    (the names ``train/losses`` reads); with ``n_importance`` > 0, after
+    all of these, the importance samples' ``fine_u`` and ``fine_shift``
+    (so the draws of ``n_importance`` = 0 are unchanged)."""
 
     def __init__(self, seed: int, n_rows: int, batch_size: int,
-                 n_samples: int, device="cuda", weighted: bool = False):
+                 n_samples: int, device="cuda", weighted: bool = False,
+                 n_importance: int = 0):
         self.seed, self.n_rows = seed, n_rows
         self.R, self.S = batch_size, n_samples
         self.device = torch.device(device)
         self.weighted = weighted
+        self.n_importance = n_importance
 
     def __call__(self, step: int) -> Dict[str, torch.Tensor]:
         g = _generator([self.seed, step], self.device)
@@ -138,38 +154,48 @@ class StepDraws:
         jitter = u(R, S)
         solar = _solar_draws(g, R, dev)
         return {**batch, "jitter": jitter, **solar,
-                "solar_jitter": u(R, S)}
+                "solar_jitter": u(R, S),
+                **_fine_draws(g, R, self.n_importance, dev)}
 
 
 class ValDraws:
     """The draws of the ``Testing`` losses at the save point ``step``: the
     indices of ``batch_size`` validation rows and their solar rays, from a
     generator seeded by ``(seed, step, VAL_STREAM)``, a stream apart from
-    :class:`StepDraws`'.  Eval mode samples without jitter."""
+    :class:`StepDraws`', then, with ``n_importance`` > 0, the importance
+    samples' (eval mode places them too, as in the JAX package).  Eval mode
+    samples without jitter."""
 
     VAL_STREAM = 1
 
     def __init__(self, seed: int, n_rows: int, batch_size: int,
-                 device="cuda"):
+                 device="cuda", n_importance: int = 0):
         self.seed, self.n_rows, self.R = seed, n_rows, batch_size
         self.device = torch.device(device)
+        self.n_importance = n_importance
 
     def __call__(self, step: int) -> Dict[str, torch.Tensor]:
         g = _generator([self.seed, step, self.VAL_STREAM], self.device)
         idx = torch.randint(0, self.n_rows, (self.R,), generator=g,
                             device=self.device)
-        return {"idx": idx, **_solar_draws(g, self.R, self.device)}
+        return {"idx": idx, **_solar_draws(g, self.R, self.device),
+                **_fine_draws(g, self.R, self.n_importance, self.device)}
 
 
-def fused_trunk_spec(model, rows: int, device):
+def fused_trunk_spec(model, rows: int, device, n_importance: int = 0):
     """The ``TrunkSpec`` that ``pallas_trunk`` trains ``model``'s trunk
     with over ``rows`` points a pass, or None for the default trunk.  Where
-    ``spec_for_model`` refuses the model: on a CUDA device a ValueError
-    with its reason, since the default trunk (full-batch BatchNorm) is
-    another function and would hide K1/K2; on the CPU a warning and None,
-    as the JAX package falls back."""
+    ``spec_for_model`` refuses the model, or hierarchical sampling is on
+    (``n_importance`` > 0, which the JAX package's fused trunk does not
+    take either): on a CUDA device a ValueError with its reason, since the
+    default trunk (full-batch BatchNorm) is another function and would
+    hide K1/K2; on the CPU a warning and None, as the JAX package falls
+    back."""
     from season_nerf_torch.ops.fused_train import spec_for_model
-    spec, why = spec_for_model(model, rows)
+    if n_importance > 0:
+        spec, why = None, "hierarchical sampling (n_importance > 0)"
+    else:
+        spec, why = spec_for_model(model, rows)
     if spec is None:
         if torch.device(device).type == "cuda":
             raise ValueError(f"pallas_trunk requested but unsupported: {why}")
@@ -187,9 +213,6 @@ class Trainer:
                  writer: Optional[MetricWriter] = None, device="cuda",
                  draws: Optional[Callable[[int], Dict]] = None,
                  val_draws: Optional[Callable[[int], Dict]] = None):
-        if cfg.n_importance > 0:
-            raise NotImplementedError("hierarchical sampling (n_importance "
-                                      "> 0) is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.writer = writer or MetricWriter(cfg.logs_dir)
@@ -215,14 +238,15 @@ class Trainer:
         if val_draws is None and val_table is not None:
             val_draws = ValDraws(cfg.seed, len(val_table),
                                  min(cfg.batch_size, len(val_table)),
-                                 self.device)
+                                 self.device, n_importance=cfg.n_importance)
         self.val_draws = val_draws
         self.weight_cdf = as_dev(weight_cdf(train_table.rows[:, 18])
                                  if cfg.weight_training_samples else None)
         self.draws = draws or StepDraws(cfg.seed, self.train_ds.n,
                                         cfg.batch_size, cfg.n_samples,
                                         self.device,
-                                        weighted=self.weight_cdf is not None)
+                                        weighted=self.weight_cdf is not None,
+                                        n_importance=cfg.n_importance)
         jump = cfg.jump_start and prior_hm is not None
         self.phases = phase_lib.build_phases(cfg.max_train_steps, jump)
         self.save_steps = set(phase_lib.save_points(
@@ -251,7 +275,7 @@ class Trainer:
         if cfg.pallas_trunk:
             spec = fused_trunk_spec(self.model,
                                     cfg.batch_size * cfg.n_samples,
-                                    self.device)
+                                    self.device, cfg.n_importance)
         return LossStatics(
             n_samples=cfg.n_samples, use_prior=use_prior,
             use_solar=cfg.Use_Solar, classic_solar=cfg.Solar_Type_2,
@@ -259,7 +283,7 @@ class Trainer:
             sc_lambda=cfg.sc_lambda, phase_len=phase.end,
             color_cfg=color_cfg, alpha_cfg=alpha_cfg,
             prior_keepalive=keepalive, phase_start=phase.start,
-            trunk_spec=spec)
+            trunk_spec=spec, n_importance=cfg.n_importance)
 
     def _enter_phase(self, phase):
         """Fresh latents (the color alpha and scale carried over), fresh
@@ -433,19 +457,6 @@ class Trainer:
         self.writer.flush()
 
     # --- validation ------------------------------------------------------------
-    @contextlib.contextmanager
-    def _eval_mode(self):
-        """The model in eval mode (a fresh fold of the trunk, the running
-        statistics read and never updated) without autograd; the mode it
-        had afterwards."""
-        was = self.model.training
-        self.model.eval()
-        try:
-            with torch.no_grad():
-                yield
-        finally:
-            self.model.train(was)
-
     def eval_losses(self) -> Dict[str, float]:
         """The phase's Season-NeRF loss in eval mode on a batch of the
         validation table drawn by ``val_draws(step)`` -> the loss values
@@ -453,7 +464,7 @@ class Trainer:
         d = self.val_draws(self.step)
         rows = self.val_table.rows[d["idx"].cpu().numpy()]
         batch = decode_batch(torch.as_tensor(rows, device=self.device))
-        with self._eval_mode():
+        with rendering.running_statistics(self.model):
             total, losses = season_nerf_loss(
                 self.model, self.ada_params, self.statics, batch, d,
                 self.step, prior_hm=self.prior_hm, sun_frame=self.sun_frame)
@@ -465,16 +476,14 @@ class Trainer:
                            chunk: Optional[int] = None):
         """Render one image of ``table`` from its rays in eval mode, in
         chunks of ``min(chunk or cfg.chunk, 4096)`` rays (the last at its
-        own size) -> (rendered [H, W, 3], gt [H, W, 3], expected-surface
-        height [H, W] (NaN where no ray), mask [H, W])."""
+        own size) -> (rendered [H, W, 3], gt [H, W, 3], both sRGB,
+        expected-surface height [H, W] (NaN where no ray), mask [H, W])."""
         cfg = self.cfg
-        if cfg.use_HSLuv:
-            raise NotImplementedError("HSLuv ray colors are not ported yet")
         chunk = min(chunk or cfg.chunk, 4096)
         rows = table.rows[table.img_ids == img_index]
         H, W = table.img_sizes[img_index]
         cols, zs = [], []
-        with self._eval_mode():
+        with rendering.running_statistics(self.model):
             for s in range(0, rows.shape[0], chunk):
                 b = decode_batch(torch.as_tensor(rows[s:s + chunk],
                                                  device=self.device))
@@ -496,6 +505,13 @@ class Trainer:
             gt[ij[:, 0], ij[:, 1]] = rows[:, 19:22]
             height[ij[:, 0], ij[:, 1]] = torch.cat(zs).float().cpu().numpy()
             seen[ij[:, 0], ij[:, 1]] = True
+        if cfg.use_HSLuv:
+            # the model's space is normalized HSLuv: the render and the
+            # HSLuv rows go back to sRGB for display and PSNR
+            from season_nerf_torch.utils.hsluv import hsluv_normalized_to_rgb
+            rend = hsluv_normalized_to_rgb(np.clip(rend, 0, 1)).astype(
+                np.float32)
+            gt = hsluv_normalized_to_rgb(np.clip(gt, 0, 1)).astype(np.float32)
         return rend, gt, height, seen
 
     def validation_report(self, step: Optional[int] = None,

@@ -24,10 +24,12 @@ package writes ``stop_gradient``.
 Randomness comes in through ``draws`` (see :func:`make_solar_rays` and
 ``train/engine.StepDraws``): the camera-pass jitter ``jitter`` [R, S], the
 solar rays' ``solar_az``, ``solar_el`` [R], ``solar_xy`` [R, 2],
-``solar_t`` [R, 2] and the solar-pass jitter ``solar_jitter`` [R, S].  A
-model in eval mode (the save-point ``Testing`` losses) samples without
-jitter, so its draws hold only the solar rays'
-(``train/engine.ValDraws``).
+``solar_t`` [R, 2] and the solar-pass jitter ``solar_jitter`` [R, S];
+with ``n_importance`` > 0 also the camera pass's importance samples'
+``fine_u`` [R, n_importance] and ``fine_shift`` [R, n_importance, 1] (the
+solar pass takes none).  A model in eval mode (the save-point ``Testing``
+losses) samples without jitter, so its draws hold only the solar rays' and
+the importance samples' (``train/engine.ValDraws``).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ class LossStatics(NamedTuple):
     phase_start: int = 0
     trunk_spec: Optional[object] = None   # ops/fused_train.TrunkSpec: the
     #                                       trunk through K1/K2 (ghost BN)
+    n_importance: int = 0      # hierarchical samples a camera ray
 
 
 def make_solar_rays(az, el, xy, t_ang, sun_frame=None):
@@ -91,9 +94,10 @@ def season_nerf_loss(model, ada_params, statics: LossStatics, batch, draws,
 
     out = rendering.eval_rays(
         model, batch["top"], batch["bot"], batch["sun"], batch["t4"],
-        n_samples=s.n_samples, classic_solar=s.classic_solar,
-        jitter=jitter, prior_hm=prior, model_trust=model_trust,
-        trunk_spec=spec)
+        n_samples=s.n_samples, n_importance=s.n_importance,
+        fine_u=draws.get("fine_u"), fine_shift=draws.get("fine_shift"),
+        classic_solar=s.classic_solar, jitter=jitter, prior_hm=prior,
+        model_trust=model_trust, trunk_spec=spec)
 
     losses: Dict[str, Tuple[torch.Tensor, object]] = {}
     gt = batch["gt_rgb"]

@@ -1,27 +1,41 @@
-"""HSLuv -> sRGB, pure numpy and vectorized.
+"""HSLuv <-> sRGB, pure numpy float64 and vectorized.
 
-The render direction of ``season_nerf_tpu/utils/hsluv.py``: a model trained
-on normalized HSLuv targets (``use_HSLuv``) renders in that space, and the
-renderer converts composited colors back to sRGB with these functions.
+``season_nerf_tpu/utils/hsluv.py`` in both directions.  With ``use_HSLuv``
+the ray table stores each pixel's color as normalized HSLuv
+(:func:`rgb_to_hsluv_normalized`, ``data/rays.build_ray_table``), the model
+learns and renders in that space, and the renderer and the validation
+report convert composited colors back to sRGB
+(:func:`hsluv_normalized_to_rgb`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-# XYZ (D65) -> linear sRGB
+# XYZ (D65) -> linear sRGB, and back
 _M = np.array([[3.240969941904521, -1.537383177570093, -0.498610760293],
                [-0.96924363628087, 1.87596750150772, 0.041555057407175],
                [0.055630079696993, -0.20397695888897, 1.056971514242878]])
+_M_INV = np.linalg.inv(_M)
 _REF_U = 0.19783000664283
 _REF_V = 0.46831999493879
 _KAPPA = 903.2962962
 _EPSILON = 0.0088564516
 
 
+def _to_linear(c):
+    c = np.asarray(c, np.float64)
+    return np.where(c > 0.04045, ((c + 0.055) / 1.055) ** 2.4, c / 12.92)
+
+
 def _from_linear(c):
     return np.where(c > 0.0031308, 1.055 * np.maximum(c, 1e-12) ** (1 / 2.4)
                     - 0.055, 12.92 * c)
+
+
+def _y_to_l(y):
+    return np.where(y <= _EPSILON, y * _KAPPA,
+                    116 * np.maximum(y, 1e-12) ** (1 / 3.0) - 16)
 
 
 def _l_to_y(l):
@@ -57,6 +71,24 @@ def _max_chroma(l, h):
     return best
 
 
+def rgb_to_hsluv(rgb):
+    """[..., 3] sRGB in [0, 1] -> HSLuv (H in [0, 360), S, L in [0, 100])."""
+    rgb = np.clip(np.asarray(rgb, np.float64), 0, 1)
+    xyz = _to_linear(rgb) @ _M_INV.T
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    l = _y_to_l(y)
+    div = x + 15 * y + 3 * z
+    div = np.where(div == 0, 1e-12, div)
+    u = 13 * l * (4 * x / div - _REF_U)
+    v = 13 * l * (9 * y / div - _REF_V)
+    c = np.hypot(u, v)
+    h = np.rad2deg(np.arctan2(v, u)) % 360
+    mx = _max_chroma(l, h)
+    s = np.where((l > 99.9999) | (l < 1e-8), 0.0,
+                 np.clip(c / np.where(mx > 0, mx, 1e-12) * 100, 0, 100))
+    return np.stack([h, s, np.clip(l, 0, 100)], axis=-1)
+
+
 def hsluv_to_rgb(hsl):
     """HSLuv (H in [0, 360), S, L in [0, 100]) -> sRGB in [0, 1]."""
     hsl = np.asarray(hsl, np.float64)
@@ -77,6 +109,11 @@ def hsluv_to_rgb(hsl):
     xyz = np.stack([x, y, z], axis=-1)
     lin = xyz @ _M.T
     return np.clip(_from_linear(lin), 0, 1)
+
+
+def rgb_to_hsluv_normalized(rgb):
+    """sRGB -> HSLuv scaled to [0, 1] channels (the training targets)."""
+    return rgb_to_hsluv(rgb) / np.array([360.0, 100.0, 100.0])
 
 
 def hsluv_normalized_to_rgb(hsl01):

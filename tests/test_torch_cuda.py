@@ -6,7 +6,10 @@ render on the CPU, training steps on the card through K1/K2, a save
 point's validation on the card (K3) against the CPU, the
 space-carving sweep on the card against the CPU, the evaluation after
 training, and the regional evaluation (the shadow test's sun rays through
-K3, ``regional_eval``, the pairwise metrics) on the card against the CPU.
+K3, ``regional_eval``, the pairwise metrics) on the card against the CPU;
+the opt-in variants: K3 at the fast render's chunk, a fast frame and a
+hierarchical training step on the card against the CPU, ``pallas_trunk``
+refusing hierarchical sampling, and K3 built at ``FAST_SIN_DEGREE=7``.
 
 Every test here needs a CUDA card and skips without one.  Run them on a
 machine with an H100, from the repository root:
@@ -21,10 +24,13 @@ import pytest
 import torch
 
 # the kernel tolerances, stated there
-from chip_smoke import (CARVE_TOL, CPU_CARD_ATOL, CPU_CARD_RTOL,
-                        GEMM_REL_TOL, K1_REL_TOL, K2_REL_TOL, RENDER_TOL,
-                        SWEEP_TOL, TOL, VAL_CHUNK, carve_recovers_surface,
-                        gemm_case, gemm_rel_err, make_model, train_params)
+from chip_smoke import (CARVE_TOL, CPU_CARD_ATOL, CPU_CARD_RTOL, FAST_N,
+                        FAST_RENDER, GEMM_REL_TOL, HIER_ATOL, HIER_GRAD_RTOL,
+                        HIER_RTOL, HIER_SMALL, K1_REL_TOL, K2_REL_TOL,
+                        RENDER_TOL, SWEEP_TOL, TOL, VAL_CHUNK,
+                        carve_recovers_surface, cpu_vs_card,
+                        flagship_train_config, gemm_case, gemm_rel_err,
+                        make_model, train_params)
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.ingest import save_world_artifact
 from season_nerf_torch.ops import fused_train as ftr
@@ -59,13 +65,15 @@ def _pe(n, device):
 # Full width at every row count that shapes the bf16 kernel's grid (64-row
 # tiles in clusters of two): one row (a cluster of one live and one idle
 # tile), one tile, a ragged odd tile count (777: 13 tiles), 4,133, the
-# exact-shadow chunk (5,120), 20,037 and the flagship render chunk
-# (491,520); then narrow, shallow trunks.  Tolerances: chip_smoke.TOL.
+# exact-shadow chunk (5,120), 20,037, the fast render's chunk (163,840) and
+# the flagship render chunk (491,520); then narrow, shallow trunks.
+# Tolerances: chip_smoke.TOL.
 @pytest.mark.parametrize("fast_sine", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("width,depth,n", [
-    *[(512, 8, n) for n in (1, 64, 777, 4133, 5120, 20_000 + 37, 491_520)],
+    *[(512, 8, n) for n in (1, 64, 777, 4133, 5120, 20_000 + 37, FAST_N,
+                            491_520)],
     (32, 2, 1000), (96, 7, 777), (128, 4, 64)])
 def test_kernel_matches_plain_version(cuda, width, depth, n, dtype,
                                       fast_sine):
@@ -171,6 +179,103 @@ def test_render_16px_full_width_matches_the_cpu(cuda, tmp_path):
         assert np.isfinite(got[k]).all(), k
         np.testing.assert_allclose(got[k], want[k], atol=RENDER_TOL, rtol=0,
                                    err_msg=k)
+
+
+def test_fast_render_16px_full_width_matches_the_cpu(cuda, tmp_path):
+    """The flagship model rendered depth-guided (``FAST_RENDER``) on the
+    card and on the CPU, within chip_smoke.RENDER_TOL; two K3 launches a
+    chunk (the window pass and the full pass), and the exact-shadow frame's
+    secondary rays from the n_fine samples with n_samples steps."""
+    cfg = Config()
+    cfg.save_json(str(tmp_path / "opts.json"))
+    save_model_artifact(str(tmp_path / "Final_Model.nn"),
+                        make_model(cfg).state_dict())
+    save_world_artifact(str(tmp_path / "W2C_W2L_H.npy"), None, None,
+                        (0.0, 30.0))
+    args = ((70.0, 30.0), (45.0, 180.0), 0.5, 16)
+    card = load_model_dir(str(tmp_path), fast_render=FAST_RENDER,
+                          device=cuda).renderer
+    cpu = load_model_dir(str(tmp_path), fast_render=FAST_RENDER,
+                         device="cpu").renderer
+    launches = ft.trunk_apply.launches
+    got = card.render_img(*args, exact_shadow=True)
+    rays, nf, S = 16 * 16, FAST_RENDER[1], cfg.n_samples
+    chunks = lambda n: -(-n // cfg.chunk)
+    assert ft.trunk_apply.launches - launches == \
+        2 * chunks(rays) + chunks(rays * nf) * (S - 1)
+    want = cpu.render_img(*args, exact_shadow=True)
+    for k in ("Col_Img", "Shadow_Mask", "Height", "PS_Sum",
+              "Exact_Shadow_Mask"):
+        assert np.isfinite(got[k]).all(), k
+        np.testing.assert_allclose(got[k], want[k], atol=RENDER_TOL, rtol=0,
+                                   err_msg=k)
+
+
+def test_hierarchical_step_on_the_card_matches_the_cpu(cuda):
+    """chip_smoke's small float32 model with n_importance: 3 steps on the
+    CPU and on the card from the same weights and draws (losses within
+    HIER_RTOL, step 0's gradients within HIER_GRAD_RTOL: the reasons are
+    stated there), one K3 launch a step on the card for the coarse pass."""
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    scene = make_scene(n_views=3, img_size=24, grid=32, seed=1)
+    table, _ = scene_ray_tables(scene, testing_size=1)
+    launches = ft.trunk_apply.launches
+    res = cpu_vs_card(table, scene.prior_hm, cuda,
+                      flagship_train_config(**HIER_SMALL), HIER_RTOL,
+                      HIER_ATOL, HIER_GRAD_RTOL)
+    assert ft.trunk_apply.launches - launches == 3
+    assert res["worst_rel"] <= HIER_RTOL
+
+
+def test_pallas_trunk_refuses_hierarchical_sampling_on_the_card(cuda):
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    from season_nerf_torch.train.engine import Trainer
+    scene = make_scene(n_views=3, img_size=24, grid=32, seed=1)
+    table, _ = scene_ray_tables(scene, testing_size=1)
+    cfg = Config(fc_units=256, batch_size=64, n_samples=32, n_importance=8,
+                 max_train_steps=10, pallas_trunk=True)
+    tr = Trainer(cfg, table, prior_hm=scene.prior_hm, device=cuda)
+    with pytest.raises(ValueError, match="hierarchical sampling"):
+        tr.train_step()
+
+
+DEGREE_CHILD = r"""
+import sys, torch
+sys.path.insert(0, ".")
+from chip_smoke import TOL, make_model
+from season_nerf_torch.config import Config
+from season_nerf_torch.ops import cuda_build, fast_math, fused_trunk as ft
+assert fast_math.DEGREE == 7
+cuda_build.build([ft.KERNEL])
+assert "FAST_SIN_DEGREE=7" in " ".join(cuda_build.NVCC_FLAGS)
+g = make_model(Config()).G_NeRF_net.cuda()
+gen = torch.Generator(device="cuda").manual_seed(7)
+for dtype in (torch.bfloat16, torch.float32):
+    folded = ft.fold_trunk(g, dtype=dtype)
+    for n in (4133, 163_840):
+        pe = ft.encode_points(torch.rand(n, 3, generator=gen, device="cuda")
+                              * 2 - 1).contiguous()
+        err = (ft.trunk_apply(pe, folded, True)
+               - ft.trunk_apply_reference(pe, folded, True)).abs()
+        assert float(err.max()) <= TOL[dtype][0], (dtype, n, float(err.max()))
+        assert float(err.mean()) <= TOL[dtype][1], (dtype, n)
+print("ok", ft.trunk_apply.launches)
+"""
+
+
+def test_kernel_at_sine_degree_7_matches_plain_version(cuda):
+    """K3 built with -DFAST_SIN_DEGREE=7 in a child process (the port reads
+    the degree at import) against its plain version at degree 7, bf16 and
+    f32 with the polynomial sine; chip_smoke.TOL."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", DEGREE_CHILD], cwd=root,
+                          env={**os.environ, "FAST_SIN_DEGREE": "7"},
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["ok", "4"]
 
 
 def test_entry_points_default_to_the_card(cuda, tmp_path):

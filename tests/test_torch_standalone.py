@@ -3,8 +3,9 @@
 port's import rule (msgpack, PIL, matplotlib, cv2, imageio, tabulate;
 scipy is inside it: the port calls it where the JAX package does).  Checked
 statically over every source file, then on the CPU in a fresh interpreter
-in which importing any of them raises: by rendering, by training two
-steps, by evaluating a model into ``Analysis.pickle`` and ``Output/``, and
+in which importing any of them raises: by rendering (the uniform and the
+depth-guided fast render), by training two steps (and two with
+hierarchical sampling), by evaluating a model into ``Analysis.pickle`` and ``Output/``, and
 by ``cli.eval_region`` (``run_test`` with ``eval_only``, ``regional_eval``
 into ``Detailed_Output/``, ``multi_region_merge`` into ``Full_Summary/``)."""
 
@@ -101,6 +102,12 @@ SCRIPT = BLOCK + textwrap.dedent("""
                      )[:8] == b"\\x89PNG\\r\\n\\x1a\\n"
     dsm, units = svc.dsm(8)
     assert dsm.shape == (8, 8) and units == "meters"
+    fast = RenderService(d, fast_render=(8, 4), device="cpu")
+    assert fast.info()["fast_render"] == [8, 4]
+    for exact in (False, True):
+        img = fast.render_view((70, 30), (45, 160), 0.4, size=8,
+                               exact_shadow=exact)
+        assert img.shape == (8, 8, 3) and np.isfinite(img).all()
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in BANNED)
     assert not loaded, loaded
     print("RENDERED")
@@ -122,6 +129,13 @@ TRAIN_SCRIPT = BLOCK + textwrap.dedent("""
         loss = trainer.train_step()
         assert all(bool(torch.isfinite(v)) for v in loss.values()), loss
     assert "Alpha_Adjust_ada" in loss
+    cfg.n_importance = 4
+    trainer = Trainer(cfg, train_table, prior_hm=scene.prior_hm,
+                      device="cpu")
+    for _ in range(2):
+        loss = trainer.train_step()
+        assert all(bool(torch.isfinite(v)) for v in loss.values()), loss
+    assert trainer.statics.n_importance == 4
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in BANNED)
     assert not loaded, loaded
     print("TRAINED")
