@@ -22,9 +22,13 @@ Phases, each fatal on failure:
    - the bf16 GEMM inside K1 and K2 (TMA + wgmma) alone at the flagship's
      shapes (a 512 x 512 forward layer, the skip layer's PE half, an input
      gradient, a weight gradient) against the f32 product;
+   - K3's f32 kernel also at width 768 (32-row tiles), and its nine layer
+     products alone as cuBLAS f32 GEMMs (``torch.matmul``, TF32 off), a
+     yardstick the port never calls;
    and time the flagship cases with CUDA events beside the kernel's bound
    and its plain version (the GEMMs beside ``torch.matmul``'s bf16 time),
-   K3 in bf16 also at the validation and fast render chunks, and at the
+   K3 in bf16 and f32 also at the validation and fast render chunks (two
+   launches there compared byte for byte), and in bf16 at the
    exact-shadow chunk also by its profiled device time a launch (there the
    wrapper's host time may exceed the kernel's); then, in one child
    process per degree with FAST_SIN_DEGREE set to 9 and to 7, build K3, K1
@@ -43,7 +47,11 @@ Phases, each fatal on failure:
    ``fast_render=(32, 32)`` (``/render?size=128``, a 16 px exact-shadow
    frame, ``/dsm?size=128``; K3 twice a chunk), time 10 warm 128 px
    frames beside the exact ones, hold a 16 px frame against the CPU and
-   profile one;
+   profile one; then serve it as a legacy directory, its opts.json without
+   ``compute_dtype`` and ``fast_sine``, so that it loads as float32 with
+   ``sinf`` and every K3 launch is the f32 kernel (``/render?size=128``,
+   ``/dsm?size=128``, a 16 px exact-shadow frame, 10 warm 128 px frames, a
+   16 px frame against the CPU to 1e-3, one frame profiled);
 5. the training main path: the flagship training config with
    ``pallas_trunk`` through ``Trainer`` on the synthetic site of
    ``bench.py`` in phase 1 (DSM prior on), one warm step and 20 timed
@@ -105,8 +113,14 @@ Phases, each fatal on failure:
    share, K3's launches against the chunking, finite scores and every
    file;
 8. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
-   summed over the main paths), then, as the last line,
+   summed over the main paths, and K3's f32 kernel with the legacy
+   directory's launches), then, as the last line,
    ``{"ok": true, "device": {...}}``.
+
+``--only f32`` builds K3 alone and runs only its float32 phases (the f32
+kernel against its plain version and timed, the cuBLAS GEMMs, the legacy
+directory served) and prints no contract lines: run from an unpacked copy
+of another commit, it compares two trees of the port in one call.
 
 Between 6 and 7, the evaluation path: ``cli.run_test`` on the synthetic
 site of phase 6 (8 steps, 2 save points, ``best_geometry``, then
@@ -311,8 +325,9 @@ def check_trunk(model, device, dtypes=(torch.bfloat16, torch.float32),
                 sines=(True, False), ns=TRUNK_NS) -> dict:
     """K3 against its plain version at every row count of ``ns``, in each
     of ``dtypes`` with each sine of ``sines``; timed at the flagship render
-    chunk, and in bf16 also at the validation and fast render chunks and
-    (with the profiler too) at the exact-shadow chunk."""
+    chunk and at the validation and fast render chunks, in bf16 also (with
+    the profiler too) at the exact-shadow chunk; two launches at the
+    validation chunk compared byte for byte."""
     from season_nerf_torch.ops import fused_trunk as ft
     g = model.G_NeRF_net
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -338,6 +353,12 @@ def check_trunk(model, device, dtypes=(torch.bfloat16, torch.float32),
                 rec = {"n": n, "max_abs_err": max_err,
                        "mean_abs_err": mean_err, "tol_max": tol_max,
                        "tol_mean": tol_mean}
+                if n == VAL_N:
+                    # two launches on the same input give the same bytes
+                    rec["repeat_equal"] = bool(torch.equal(
+                        got, ft.trunk_apply(pe, folded, fast_sine)))
+                    if not rec["repeat_equal"]:
+                        fail(f"{name} N={n}: two launches differ")
                 if n == SHADOW_N and dtype == torch.bfloat16:
                     run = lambda: ft.trunk_apply(pe, folded, fast_sine)
                     rec["ms"] = cuda_ms(run, 50)
@@ -348,9 +369,8 @@ def check_trunk(model, device, dtypes=(torch.bfloat16, torch.float32),
                     rec["bound_ms"] = (2.0 * macs * n / PEAK_BF16_FLOPS
                                        * 1e3)
                     rec["bound_by"] = "operations"
-                if n == FLAGSHIP_N or (n in (VAL_N, FAST_N)
-                                       and dtype == torch.bfloat16):
-                    reps = 10 if dtype == torch.bfloat16 else 3
+                if n in (FLAGSHIP_N, VAL_N, FAST_N):
+                    reps = 10 if dtype == torch.bfloat16 else 5
                     rec["ms"] = cuda_ms(
                         lambda: ft.trunk_apply(pe, folded, fast_sine), reps)
                     rec["plain_ms"] = cuda_ms(
@@ -385,17 +405,26 @@ def check_trunk(model, device, dtypes=(torch.bfloat16, torch.float32),
     return results
 
 
-def check_trunk_small_widths(device):
+# (width, depth, dtypes): narrow, shallow trunks in both kernels, and the
+# f32 kernel's widest (768: 32-row tiles, where the bf16 kernel stops at 512)
+SMALL_TRUNKS = ((32, 2, (torch.bfloat16, torch.float32)),
+                (128, 4, (torch.bfloat16, torch.float32)),
+                (96, 7, (torch.bfloat16, torch.float32)),
+                (768, 8, (torch.float32,)))
+
+
+def check_trunk_small_widths(device, trunks=SMALL_TRUNKS):
     """Every depth and width the model builds goes through the same kernel:
-    a narrow, shallow trunk at a ragged row count."""
+    narrow, shallow trunks and the f32 kernel's widest at a ragged row
+    count."""
     from season_nerf_torch.config import Config
     from season_nerf_torch.ops import fused_trunk as ft
-    for width, depth in ((32, 2), (128, 4), (96, 7)):
+    for width, depth, dtypes in trunks:
         model = make_model(Config(fc_units=width, fc_layers=depth)).to(device)
         gen = torch.Generator(device=device).manual_seed(SEED + width)
         pe = ft.encode_points(torch.rand(RAGGED_N, 3, generator=gen,
                                          device=device) * 2 - 1)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             folded = ft.fold_trunk(model.G_NeRF_net, dtype=dtype)
             for fast_sine in (True, False):
                 got = ft.trunk_apply(pe, folded, fast_sine)
@@ -406,6 +435,42 @@ def check_trunk_small_widths(device):
                 if err > TOL[dtype][0]:
                     fail(f"trunk width {width} depth {depth} {dtype} "
                          f"fast_sine={fast_sine}: {err}")
+
+
+def f32_layer_gemms(model, device, ns=(FLAGSHIP_N, VAL_N, FAST_N)) -> dict:
+    """A per-layer cuBLAS yardstick for K3's f32 kernel: each layer's
+    product alone, ``torch.matmul`` in full f32 (``allow_tf32`` False) of
+    an [N, k_pad] input and W'^T [k_pad, n_pad] into a preallocated output,
+    at each row count of ``ns`` (CUDA events, 5 calls), beside the
+    operations' bound at 67 TFLOP/s.  The port never calls it; it has no
+    bias, sine or skip and writes every layer's output to device memory."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    torch.backends.cuda.matmul.allow_tf32 = False
+    folded = ft.fold_trunk(model.G_NeRF_net, dtype=torch.float32,
+                           device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    results = {}
+    for n in ns:
+        layers = []
+        for w in folded.weights:
+            n_out, k = w.shape
+            x = torch.rand(n, k, generator=gen, device=device) * 2 - 1
+            wt, out = w.t().contiguous(), torch.empty(n, n_out, device=device)
+            ms = cuda_ms(lambda: torch.matmul(x, wt, out=out), 5)
+            flops = 2.0 * n * k * n_out
+            layers.append({"k": k, "n": n_out, "ms": ms,
+                           "tflops": flops / ms / 1e9,
+                           "bound_ms": flops / PEAK_F32_FLOPS * 1e3})
+            del x, wt, out
+        total = sum(r["ms"] for r in layers)
+        results[n] = {"layers": layers, "ms": total,
+                      "bound_ms": sum(r["bound_ms"] for r in layers)}
+        log(f"  cuBLAS f32 layer GEMMs alone, N={n}: {total:.3f} ms in all "
+            f"(bound {results[n]['bound_ms']:.3f} ms); per layer (ms, "
+            f"TFLOP/s): " + ", ".join(f"{r['k']}x{r['n']} {r['ms']:.3f} "
+                                      f"{r['tflops']:.1f}" for r in layers))
+        torch.cuda.empty_cache()
+    return results
 
 
 # --- K1 and K2 against their plain versions ----------------------------------
@@ -861,17 +926,17 @@ def serve_requests(port: int, requests, h_range) -> list:
     return records
 
 
-def card_vs_cpu_render(card, cpu) -> dict:
+def card_vs_cpu_render(card, cpu, tol=RENDER_TOL) -> dict:
     """A 16 px render by the ``card`` Renderer and by the ``cpu`` one
     (plain versions) of the same model directory: the max abs difference
-    of each output, each held to RENDER_TOL."""
+    of each output, each held to ``tol``."""
     args = ((70.0, 30.0), (45.0, 180.0), 0.5, 16)
     a, b = card.render_img(*args), cpu.render_img(*args)
     diffs = {k: float(np.nanmax(np.abs(
         np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64))))
         for k in ("Col_Img", "Shadow_Mask", "Height", "PS_Sum")}
-    log(f"  16 px render, card against CPU: {diffs} (tol {RENDER_TOL})")
-    if not all(np.isfinite(v) and v <= RENDER_TOL for v in diffs.values()):
+    log(f"  16 px render, card against CPU: {diffs} (tol {tol})")
+    if not all(np.isfinite(v) and v <= tol for v in diffs.values()):
         fail("the card's render disagrees with the CPU path")
     return diffs
 
@@ -1002,6 +1067,84 @@ def fast_render_path(model, cfg, device, exact_latency) -> dict:
         prof = profile_render(service.renderer, 128)
         report["profile_128px"] = prof
         log_profile("one fast 128 px render", prof)
+    return report
+
+
+# A model directory whose opts.json predates compute_dtype and fast_sine
+# loads as float32 with the exact sine (config._LEGACY_DEFAULTS): every K3
+# launch then runs the f32 kernel.  A 16 px frame on the card is held
+# against the CPU path (plain versions) to 1e-3, the f32 density surface's
+# tolerance in tests/test_torch_cuda.py: the two sum the same f32 products
+# in other orders.
+LEGACY_KEYS = ("compute_dtype", "fast_sine")
+F32_RENDER_TOL = 1e-3
+
+
+def write_legacy_model_dir(d: str, model, cfg, h_range):
+    """:func:`write_model_dir`, then ``LEGACY_KEYS`` taken out of
+    opts.json, as a directory written before those knobs existed."""
+    write_model_dir(d, model, cfg, h_range)
+    path = os.path.join(d, "opts.json")
+    with open(path) as f:
+        opts = json.load(f)
+    for k in LEGACY_KEYS:
+        opts.pop(k)
+    with open(path, "w") as f:
+        json.dump(opts, f, indent=1)
+
+
+def legacy_f32_path(model, cfg, device) -> dict:
+    """The render cell's model as a legacy directory (float32, ``sinf``)
+    served over HTTP: ``/render?size=128``, ``/dsm?size=128`` and a 16 px
+    exact-shadow frame with K3's launches as the chunking implies, 10 warm
+    128 px frames (median, max), a 16 px frame on the card against the CPU
+    within F32_RENDER_TOL, and one 128 px frame under the profiler."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.render.loading import load_model_dir
+    from season_nerf_torch.render.serving import RenderService, make_server
+    S, chunk = cfg.n_samples, cfg.chunk
+    chunks = lambda n: -(-n // chunk)
+    requests = [
+        ("/render?size=128", chunks(128 * 128), "png", (128, 128, 3)),
+        ("/dsm?size=128", chunks(128 * 128), "npy", (128, 128)),
+        ("/render?size=16&exact_shadow=1",
+         chunks(16 * 16) + chunks(16 * 16 * S) * (S - 1), "png",
+         (16, 16, 3)),
+    ]
+    h_range = (0.0, 30.0)
+    report = {}
+    with tempfile.TemporaryDirectory() as d:
+        write_legacy_model_dir(d, model, cfg, h_range)
+        service = RenderService(d, device=device)
+        fused = service.renderer.model.G_NeRF_net.fused()
+        report["dtype"] = str(fused.folded.dtype)
+        report["fast_sine"] = bool(fused.fast_sine)
+        if fused.folded.dtype != torch.float32 or fused.fast_sine:
+            fail(f"the legacy directory loaded as {fused.folded.dtype}, "
+                 f"fast_sine={fused.fast_sine}; want float32 with sinf")
+        server = make_server(service, "127.0.0.1", 0)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            ft.trunk_apply.launches = 0
+            report["requests"] = serve_requests(port, requests, h_range)
+            report["k3_launches"] = ft.trunk_apply.launches
+            report["latency"] = lat = latency(port, STEADY_PATH,
+                                              STEADY_REQUESTS)
+            log(f"  GET {STEADY_PATH} x {lat['n']}, float32 legacy model: "
+                f"median {lat['median_s']:.4f} s, max {lat['max_s']:.4f} s "
+                f"({lat['rays_per_s']:.0f} rays/s at the median)")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        report["card_vs_cpu_16px"] = card_vs_cpu_render(
+            service.renderer, load_model_dir(d, device="cpu").renderer,
+            F32_RENDER_TOL)
+        prof = profile_render(service.renderer, 128)
+        report["profile_128px"] = prof
+        log_profile("one float32 legacy 128 px render", prof)
     return report
 
 
@@ -2901,6 +3044,43 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
     return report
 
 
+def ptxas_entries(report: str, mark: str) -> dict:
+    """ptxas's lines for each compiled entry whose name holds ``mark``:
+    registers, shared memory, stack and spills."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry" in line:
+            name = line.split("'")[1] if "'" in line else line
+            name = name if mark in name else None
+            if name:
+                out[name] = []
+        elif name and any(w in line for w in ("registers", "spill",
+                                              "stack")):
+            out[name].append(line.strip())
+    return out
+
+
+def f32_only(args, model, cfg, device, card, nvcc_s, f32_ptxas, t_start):
+    """``--only f32``: K3's float32 phases alone, into ``--json``."""
+    log("K3's f32 kernel against trunk_apply_reference:")
+    trunk = check_trunk(model.to(device), device, dtypes=(torch.float32,))
+    check_trunk_small_widths(device, [(w, d, (torch.float32,))
+                                      for w, d, _ in SMALL_TRUNKS])
+    log("K3's f32 layers as cuBLAS f32 GEMMs alone (a yardstick):")
+    f32_gemms = f32_layer_gemms(model, device)
+    log("HTTP serving a legacy model directory (float32, sinf)")
+    legacy = legacy_f32_path(model.cpu(), cfg, device)
+    os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+    with open(args.json, "w") as f:
+        json.dump({"card": card, "torch": torch.__version__,
+                   "cuda": torch.version.cuda, "nvcc_s": nvcc_s,
+                   "f32_ptxas": f32_ptxas, "trunk": trunk,
+                   "f32_gemms": f32_gemms, "legacy_f32": legacy,
+                   "seconds": time.perf_counter() - t_start}, f, indent=1)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+
+
 def main():
     import argparse
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2908,6 +3088,13 @@ def main():
                    help="where to write every measurement as JSON")
     p.add_argument("--degree-child", action="store_true",
                    help=argparse.SUPPRESS)     # see degree_children
+    p.add_argument("--only", choices=("f32",),
+                   help="f32: build K3 alone and run only its float32 "
+                        "phases (the f32 kernel against its plain version "
+                        "and timed, the cuBLAS layer GEMMs, the legacy "
+                        "float32 model directory served), e.g. to compare "
+                        "two trees of the port in one call; prints no "
+                        "contract lines")
     args = p.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -2939,7 +3126,8 @@ def main():
         fail("scipy is absent: the evaluation's alignment searches and LPs "
              "need it")
 
-    names = [ft.KERNEL, ftr.FWD_KERNEL, ftr.BWD_KERNEL]
+    names = [ft.KERNEL] if args.only else [ft.KERNEL, ftr.FWD_KERNEL,
+                                           ftr.BWD_KERNEL]
     t0 = time.perf_counter()
     cuda_build.build(names)
     nvcc_s = time.perf_counter() - t0
@@ -2951,12 +3139,19 @@ def main():
             if any(w in line for w in ("registers", "spill",
                                        "Compiling entry", "C7515")):
                 log(f"  ptxas {n}: {line.strip()}")
+    f32_ptxas = ptxas_entries(ptxas[ft.KERNEL], "trunk_f32")
+    log("ptxas, K3's f32 kernel (registers, spills): " + json.dumps(f32_ptxas))
 
     cfg = Config()
     model = make_model(cfg)
+    if args.only == "f32":
+        f32_only(args, model, cfg, device, card, nvcc_s, f32_ptxas, t_start)
+        return
     log("K3 (trunk_infer) against trunk_apply_reference:")
     trunk = check_trunk(model.to(device), device)
     check_trunk_small_widths(device)
+    log("K3's f32 layers as cuBLAS f32 GEMMs alone (a yardstick):")
+    f32_gemms = f32_layer_gemms(model, device)
 
     log("K1 (trunk_train_fwd) and K2 (trunk_train_bwd) against "
         "trunk_fwd_reference / trunk_bwd_reference:")
@@ -2982,6 +3177,10 @@ def main():
     log(f"main path: HTTP serving at full width with fast_render "
         f"{FAST_RENDER}")
     fast = fast_render_path(model, cfg, device, serving["latency"])
+
+    log("main path: HTTP serving a legacy model directory (float32, sinf: "
+        "K3's f32 kernel)")
+    legacy = legacy_f32_path(model, cfg, device)
     del model
     torch.cuda.empty_cache()
 
@@ -3029,6 +3228,21 @@ def main():
         "bound_by": flagship["bound_by"],
         "library_ms": None,
     }]
+    f32 = trunk["trunk_infer[float32,sinf]"][0]
+    kernels.append({
+        "name": "trunk_infer[float32]",
+        "route": "cuda",
+        "source": "season_nerf_torch/csrc/trunk_infer.cu",
+        "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
+        "launches": legacy["k3_launches"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in trunk["trunk_infer[float32,sinf]"]),
+        "ms": f32["ms"],
+        "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"],
+        "library_ms": None,
+    })
     tk = train_kernels["flagship,bf16,fast_sin"]
     for key, name, line, launches in (
             ("k1", ftr.FWD_KERNEL, 238, training["k1_launches"]
@@ -3055,7 +3269,9 @@ def main():
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "nvcc_s": nvcc_s,
                    "ptxas": ptxas,
+                   "f32_ptxas": f32_ptxas, "f32_gemms": f32_gemms,
                    "trunk": trunk, "serving": serving, "fast_render": fast,
+                   "legacy_f32": legacy,
                    "train_kernels": train_kernels, "gemms": gemms,
                    "degrees": degrees, "training": training,
                    "hierarchical": hierarchical, "hsluv": hsluv,

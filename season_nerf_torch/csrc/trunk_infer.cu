@@ -71,12 +71,51 @@
 //    (PERF.md).  The shared-memory limit is set on every launch; a wait
 //    that polls too long traps.
 //
-// f32 (trunk_f32): 32-row tiles, plain FFMA in full f32 (the reference's
-// f32 path is not TF32); each thread owns 4 rows x 8 columns.  Buffer A
-// holds [h | PE] so that the skip layer reads its concatenation in place,
-// buffer B holds h, and the layers ping-pong between them (the plan comes
-// from the host); the weights stream from global memory through L2.
-// Rows past the end of the input are computed on zeros and never stored.
+// f32 (trunk_f32), FFMA in full f32 (the reference's f32 path is not TF32,
+// nor 3xTF32: both round the products otherwise).  At 67 TFLOP/s a flagship
+// chunk's 2.0 TFLOP take 29.79 ms, so the kernel is bound by FFMA issue and
+// the design keeps the FFMA pipes fed:
+//  - A CTA holds one tile of 64 rows (32 above a padded width of 512), 288
+//    threads: warps 0-7 consume, warp 8 is the producer.  The tile's
+//    activations never leave the SM: h and, after it, the PE live in shared
+//    memory as f32, K-major (act[k][row], rows padded by kPadRows): (width +
+//    64) x 68 x 4 = 156,672 B at width 512.  fc1 reads the PE rows of act,
+//    the skip layer reads [h | PE] in place: its K runs on from h's rows
+//    into the PE's.
+//  - The weights stream through a ring of kSlotsF32 = 4 slots, each kKs = 8
+//    rows of W'^T [k, n] (16 KB at n = 512).  fold_trunk keeps an f32 copy
+//    of every W' as W'^T, the layers one after the other (FoldedTrunk.
+//    ring_weights), so each slot of the stream is one contiguous block: the
+//    producer's lane 0 copies it with one cp.async.bulk onto the slot's full
+//    mbarrier, and each consumer warp frees a slot on its empty mbarrier as
+//    soon as its products of that slot are done; three slots (48 KB) are in
+//    flight while one is read, and the producer runs ahead across layers.
+//    Each weight byte read from L2 serves the tile's rows: 8.1 MB a 64-row
+//    tile, 62 GB a flagship chunk, ~1.3 TB/s at 46 ms, well inside L2's
+//    rate, so no cluster multicast.
+//  - The micro-kernel: each consumer thread owns 8 rows x 16 columns (128
+//    f32 accumulators, started at b'); a warp covers 32 rows x 128 columns,
+//    the 8 warps 64 x 512 (or 32 x 1024).  A k step is 2 LDS.128 of act (the
+//    8 rows: 4 + 4; a quarter-warp's lanes read the same 16 B) and 4 of the
+//    slot (16 columns: 4 + 4 + 4 + 4, 32 apart; a quarter-warp reads 128
+//    contiguous bytes) for 128 FFMAs.  Each output sums its products in k
+//    order onto b', one fmaf at a time: no split-K, no atomics, so two
+//    launches give the same bytes.  ptxas gives 168 registers, no spills:
+//    9 warps put 3 on one SM sub-partition, whose 16 K registers then cap a
+//    thread at 168.  (Slower on the card, PERF.md: the producer's work
+//    moved into consumer warp 0, for 255 registers; a per-layer choice of
+//    the columns a thread owns, so that fc9's 256 keep all 8 warps busy.)
+//  - Writing a layer over its input: once the layer's products are done, a
+//    named barrier over the consumers, then the sine into act in place (a
+//    float4 store is 4 rows of one column; the row padding spreads a warp's
+//    stores over every bank), and the barrier again before the next layer
+//    reads.  fast_sin runs straight-line from the registers; sinf, a branch
+//    around its reduction for |z| > 105615 in every call, runs as a loop
+//    over act after z is stored there (f32_sinf_pass).  The last layer
+//    writes f32 x_enc.
+//  - Rows past the end of the input are computed on zeros and never
+//    stored.  Widths up to 768 after padding to 128 (32-row tiles above
+//    512), up to kMaxLayers layers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,10 +128,6 @@
 namespace {
 
 using namespace hopper;
-
-__device__ __forceinline__ float activate(float z, int fast) {
-  return fast ? fast_sin(z) : sinf(z);
-}
 
 // --- bf16: TMA + wgmma ------------------------------------------------------
 constexpr int kCluster = 2;
@@ -345,107 +380,310 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   cluster_sync();
 }
 
-// --- f32: FFMA ---------------------------------------------------------------
-constexpr int kThreads = 256;
-constexpr int kRowsF32 = 32;
-constexpr int kPadF32 = 4;    // row padding in elements: conflict-free reads
-constexpr int kTableStride = 8;   // int64 fields per layer in the table
-constexpr int kMaxSmem = 232448;
-
-// Layer table (int64, kTableStride per layer, built by the host):
-//   [0] W' pointer, [n, k] row-major     [1] b' pointer, [n] f32
-//   [2] k   [3] n   (both padded: k % 16 == 0, n % 32 == 0)
-//   [4] input buffer (0 = A, 1 = B)  [5] input column offset
-//   [6] output buffer (0 = A, 1 = B; unused by the last layer)
-struct Params {
-  const long long* table;
-  int n_layers;
-  const float* pe;   // [rows, pe_cols] f32
-  float* out;        // [rows, out_cols] f32
-  int rows, pe_cols, out_cols;
-  int a_cols, b_cols;   // widths of buffers A ([h | PE]) and B (h)
-  int fast_sine;
+// --- f32: FFMA, a producer warp and a weight ring -----------------------------
+constexpr int kKs = 8;              // rows of W'^T [k, n] a ring slot holds
+constexpr int kSlotsF32 = 4;
+constexpr int kConsumersF32 = 256;  // warps 0-7; warp 8 is the producer
+constexpr int kThreadsF32 = kConsumersF32 + 32;
+constexpr int kPadRows = 4;         // act's row padding: conflict-free stores
+constexpr int kMaxWidthF32 = 768;   // widest padded layer
+constexpr int kWideRows = 512;      // above this padded width: 32-row tiles
+constexpr int kSmemMax = 232448 - 1024;   // dynamic; the rest: barriers
+// launch plan (int64, kF32Fields per layer, built by the host:
+// fused_trunk.FoldedTrunk.f32_plan)
+constexpr int kF32Fields = 6;
+enum F32Field {
+  F_B = 0,   // b' pointer, f32 [n]
+  F_K,       // k, a multiple of kKs
+  F_N,       // n, a multiple of 128, <= the padded width
+  F_IN,      // the act row (k) where the layer's input starts
+  F_W,       // offset of the layer's W'^T [k, n] in ring_weights (floats)
+  F_PE,      // the input's k where the PE starts, or -1
 };
 
-__global__ void __launch_bounds__(kThreads, 1) trunk_f32(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lda = p.a_cols + kPadF32, ldb = p.b_cols + kPadF32;
-  float* buf_a = reinterpret_cast<float*>(smem);
-  float* buf_b = buf_a + kRowsF32 * lda;
-  const int row0 = blockIdx.x * kRowsF32;
-  const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
+struct F32Layer {
+  const float* bias;
+  const float* w;    // W'^T [k, n]
+  int k, n, in_k;
+};
 
-  const int pe_off = p.a_cols - p.pe_cols;
-  for (int i = tid; i < kRowsF32 * p.pe_cols; i += kThreads) {
-    const int r = i / p.pe_cols, c = i % p.pe_cols;
-    buf_a[r * lda + pe_off + c] = (row0 + r < p.rows)
-        ? p.pe[(size_t)(row0 + r) * p.pe_cols + c] : 0.f;
-  }
-  __syncthreads();
+struct F32Params {
+  F32Layer layers[kMaxLayers];
+  int n_layers;
+  const float* pe;   // [rows, 64] f32
+  float* out;        // [rows, out_cols] f32
+  int rows, out_cols;
+  int width;         // padded width: the PE's first act row
+  int slot_floats;   // a ring slot's capacity
+};
 
-  for (int l = 0; l < p.n_layers; ++l) {
-    const long long* T = p.table + kTableStride * l;
-    const float* W = reinterpret_cast<const float*>(T[0]);
-    const float* bias = reinterpret_cast<const float*>(T[1]);
-    const int K = (int)T[2], N = (int)T[3];
-    const float* in = (T[4] ? buf_b : buf_a) + T[5];
-    const int ldi = T[4] ? ldb : lda;
-    float* dst = T[6] ? buf_b : buf_a;
-    const int ldo = T[6] ? ldb : lda;
-    const bool last = (l == p.n_layers - 1);
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-    // thread (ty, tx): rows 4*ty .. 4*ty+3, columns nb + tx + 32*j
-    for (int nb = 0; nb < N; nb += 8 * 32) {
-      const int nj = min(8, (N - nb) / 32);   // warp-uniform
-      float acc[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+// dst (shared) <- `bytes` contiguous bytes at src (global), completing on
+// the mbarrier `bar` (cp.async.bulk; 16-byte aligned, bytes % 16 == 0)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
-      for (int k0 = 0; k0 < K; k0 += 4) {
-        float4 a[4];
+// Accumulator [i][c] of a consumer thread: row ra + 16 (i / 4) + i % 4 of
+// the tile, column cb + 32 (c / 4) + c % 4.
+// fast_sin of acc, straight-line from the registers: in place into act
+// (column c is act row c), or, LAST, f32 to the output.
+template <int ROWS, bool LAST>
+__device__ __forceinline__ void f32_fast_epilogue(const float (&acc)[8][16],
+                                                  const F32Params& p,
+                                                  float* act, int ra, int cb,
+                                                  int row0) {
+  constexpr int LDA = ROWS + kPadRows;
+  if (LAST) {
+    const bool vec = !(p.out_cols & 3);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(in + (4 * ty + i) * ldi
-                                                  + k0);
+    for (int i = 0; i < 8; ++i) {
+      const int gr = row0 + ra + 16 * (i >> 2) + (i & 3);
+      if (gr >= p.rows) continue;
+      float* o = p.out + (size_t)gr * p.out_cols;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (j < nj) {
-            const float4 w = __ldg(reinterpret_cast<const float4*>(
-                W + (size_t)(nb + tx + 32 * j) * K + k0));
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              acc[i][j] = fmaf(a[i].x, w.x, acc[i][j]);
-              acc[i][j] = fmaf(a[i].y, w.y, acc[i][j]);
-              acc[i][j] = fmaf(a[i].z, w.z, acc[i][j]);
-              acc[i][j] = fmaf(a[i].w, w.w, acc[i][j]);
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j >= nj) continue;
-        const int col = nb + tx + 32 * j;
-        const float b = bias[col];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 4 * ty + i;
-          const float v = activate(acc[i][j] + b, p.fast_sine);
-          if (last) {
-            const int gr = row0 + r;
-            if (gr < p.rows && col < p.out_cols)
-              p.out[(size_t)gr * p.out_cols + col] = v;
-          } else {
-            dst[r * ldo + col] = v;
-          }
+      for (int j = 0; j < 4; ++j) {
+        const int c = cb + 32 * j;
+        if (c >= p.out_cols) continue;
+        const float4 v = make_float4(
+            fast_sin(acc[i][4 * j]), fast_sin(acc[i][4 * j + 1]),
+            fast_sin(acc[i][4 * j + 2]), fast_sin(acc[i][4 * j + 3]));
+        if (vec) {
+          *reinterpret_cast<float4*>(o + c) = v;
+        } else {
+          o[c] = v.x;
+          if (c + 1 < p.out_cols) o[c + 1] = v.y;
+          if (c + 2 < p.out_cols) o[c + 2] = v.z;
+          if (c + 3 < p.out_cols) o[c + 3] = v.w;
         }
       }
     }
-    __syncthreads();
+  } else {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      float* d = act + (cb + 32 * (c >> 2) + (c & 3)) * LDA + ra;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(d + 16 * h) = make_float4(
+            fast_sin(acc[4 * h][c]), fast_sin(acc[4 * h + 1][c]),
+            fast_sin(acc[4 * h + 2][c]), fast_sin(acc[4 * h + 3][c]));
+    }
   }
+}
+
+// acc (b' and the products) as it is, into act, for f32_sinf_pass
+template <int ROWS>
+__device__ __forceinline__ void f32_store_z(const float (&acc)[8][16],
+                                            float* act, int ra, int cb) {
+  constexpr int LDA = ROWS + kPadRows;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    float* d = act + (cb + 32 * (c >> 2) + (c & 3)) * LDA + ra;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(d + 16 * h) = make_float4(
+          acc[4 * h][c], acc[4 * h + 1][c], acc[4 * h + 2][c],
+          acc[4 * h + 3][c]);
+  }
+}
+
+// sinf of act rows 0 .. n - 1 (z, as f32_store_z left them), by every
+// consumer in a loop: in place, or, last, f32 to the output.  sinf's
+// out-of-line reduction for |z| > 105615 makes each call a branch, and 128
+// calls inlined into the straight-line epilogue were slower (PERF.md).
+template <int ROWS>
+__device__ __forceinline__ void f32_sinf_pass(float* act, int n, bool last,
+                                              const F32Params& p, int row0) {
+  constexpr int LDA = ROWS + kPadRows, Q = ROWS / 4;   // float4s an act row
+  if (!last) {
+    for (int i = threadIdx.x; i < n * Q; i += kConsumersF32) {
+      float* d = act + (i / Q) * LDA + 4 * (i % Q);
+      const float4 z = lds4(d);
+      *reinterpret_cast<float4*>(d) =
+          make_float4(sinf(z.x), sinf(z.y), sinf(z.z), sinf(z.w));
+    }
+  } else {
+    const int rows = min(ROWS, p.rows - row0);
+    for (int i = threadIdx.x; i < rows * p.out_cols; i += kConsumersF32) {
+      const int r = i / p.out_cols, c = i - r * p.out_cols;
+      p.out[(size_t)(row0 + r) * p.out_cols + c] = sinf(act[c * LDA + r]);
+    }
+  }
+}
+
+// The ring's slot sequence, the same in the producer and the consumers:
+// layer by layer, kKs rows of W'^T at a time (slot q holds the layer's
+// rows kKs kc .. kKs kc + kKs - 1, all n columns).  Every consumer warp
+// waits for every slot and frees it, also a warp with no columns in a
+// layer narrower than its 8 warps cover.
+template <int ROWS, bool FAST>
+__global__ void __launch_bounds__(kThreadsF32, 1)
+    trunk_f32(const __grid_constant__ F32Params p) {
+  constexpr int LDA = ROWS + kPadRows;
+  constexpr int WC = 8 / (ROWS / 32);   // warp columns, 128 columns each
+  extern __shared__ __align__(128) uint8_t smem_f32[];
+  __shared__ __align__(8) uint64_t bars[2 * kSlotsF32];  // full, then empty
+  float* act = reinterpret_cast<float*>(smem_f32);
+  float* ring = act + (((p.width + 64) * LDA + 31) & ~31);
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kSlotsF32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * ROWS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlotsF32; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);    // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    if (lane == 0) {
+      int q = 0;
+      for (int l = 0; l < p.n_layers; ++l) {
+        const F32Layer& L = p.layers[l];
+        const uint32_t bytes = kKs * L.n * 4;
+        for (int kc = 0; kc < L.k / kKs; ++kc, ++q) {
+          const int s = q % kSlotsF32;
+          mbar_wait(empty0 + 8 * s, ((q / kSlotsF32) & 1) ^ 1);
+          mbar_expect_tx(full0 + 8 * s, bytes);
+          bulk_load(smem_u32(ring + s * p.slot_floats),
+                    L.w + (size_t)kc * kKs * L.n, bytes, full0 + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  // the PE: f32 [rows, 64] -> act rows width .. width + 63, zeros past the
+  // end of the input
+  for (int i = threadIdx.x; i < ROWS * 16; i += kConsumersF32) {
+    const int r = i >> 4, c = 4 * (i & 15);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < p.rows)
+      v = __ldg(reinterpret_cast<const float4*>(
+          p.pe + (size_t)(row0 + r) * 64 + c));
+    float* d = act + (p.width + c) * LDA + r;
+    d[0] = v.x;
+    d[LDA] = v.y;
+    d[2 * LDA] = v.z;
+    d[3 * LDA] = v.w;
+  }
+  bar_sync(1, kConsumersF32);
+  const int wr = warp / WC, wc = warp % WC;
+  const int ra = wr * 32 + 4 * (lane >> 3);    // rows ra + 16 h + e
+  const int cb = wc * 128 + 4 * (lane & 7);    // columns cb + 32 j + e
+  int q = 0;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const F32Layer L = p.layers[l];
+    const bool active = wc * 128 < L.n;
+    const bool last = l == p.n_layers - 1;
+    float acc[8][16];
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 b = __ldg(reinterpret_cast<const float4*>(
+            L.bias + cb + 32 * j));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][4 * j] = b.x;
+          acc[i][4 * j + 1] = b.y;
+          acc[i][4 * j + 2] = b.z;
+          acc[i][4 * j + 3] = b.w;
+        }
+      }
+    }
+    const float* a = act + L.in_k * LDA + ra;
+    for (int kc = 0; kc < L.k / kKs; ++kc, ++q) {
+      const int s = q % kSlotsF32;
+      mbar_wait(full0 + 8 * s, (q / kSlotsF32) & 1);
+      if (active) {
+        const float* b = ring + s * p.slot_floats + cb;
+#pragma unroll
+        for (int kk = 0; kk < kKs; ++kk) {
+          const float* ak = a + (kc * kKs + kk) * LDA;
+          const float* bk = b + kk * L.n;
+          const float4 a0 = lds4(ak), a1 = lds4(ak + 16);
+          const float4 b0 = lds4(bk), b1 = lds4(bk + 32), b2 = lds4(bk + 64),
+                       b3 = lds4(bk + 96);
+          const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float bv[16] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w,
+                                b2.x, b2.y, b2.z, b2.w, b3.x, b3.y, b3.z, b3.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int c = 0; c < 16; ++c)
+              acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    }
+    // every warp has read this layer's input: it may be overwritten
+    bar_sync(1, kConsumersF32);
+    if (FAST) {
+      if (active) {
+        if (last)
+          f32_fast_epilogue<ROWS, true>(acc, p, act, ra, cb, row0);
+        else
+          f32_fast_epilogue<ROWS, false>(acc, p, act, ra, cb, row0);
+      }
+    } else {
+      if (active) f32_store_z<ROWS>(acc, act, ra, cb);
+      bar_sync(1, kConsumersF32);
+      f32_sinf_pass<ROWS>(act, L.n, last, p, row0);
+    }
+    if (!last) bar_sync(1, kConsumersF32);
+  }
+}
+
+// The launch plan of an f32 trunk is one the kernel serves: fc1 reads the
+// 64 PE rows of act alone, every later layer reads the previous layer's
+// output and, the skip layer, the PE rows after it; the weights lie one
+// layer after the other in the ring copy.
+bool valid_f32_plan(const long long* plan, int n_layers, int out_cols,
+                    int width) {
+  if (n_layers < 1 || n_layers > kMaxLayers || out_cols < 1 || width < 128 ||
+      width % 128 || width > kMaxWidthF32)
+    return false;
+  long long prev_n = 0, w_off = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const long long* f = plan + (size_t)l * kF32Fields;
+    const long long K = f[F_K], N = f[F_N], pe = f[F_PE];
+    if (K < kKs || K % kKs || N < 128 || N % 128 || N > width || !f[F_B] ||
+        f[F_W] != w_off)
+      return false;
+    if (l == 0 ? (K != 64 || f[F_IN] != width || pe != 0)
+               : (f[F_IN] != 0 || (pe < 0 ? K != prev_n
+                                          : (pe != width || prev_n != width ||
+                                             K != width + 64))))
+      return false;
+    prev_n = N;
+    w_off += K * N;
+  }
+  return out_cols <= prev_n;
+}
+
+template <int ROWS>
+int launch_f32(const F32Params& p, int fast_sine, cudaStream_t stream) {
+  void (*kernel)(F32Params) = fast_sine ? trunk_f32<ROWS, true>
+                                        : trunk_f32<ROWS, false>;
+  const int act = (((p.width + 64) * (ROWS + kPadRows) + 31) & ~31) * 4;
+  const int smem = act + kSlotsF32 * p.slot_floats * 4;
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(p.rows + ROWS - 1) / ROWS, kThreadsF32, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // The launch plan of a bf16 trunk is one the kernel serves: fc1 reads the
@@ -531,32 +769,37 @@ int trunk_bf16_launch(const long long* plan, int n_layers, const void* maps,
   return (int)cudaGetLastError();
 }
 
-// Launches the f32 kernel on `stream` and returns cudaGetLastError() (0 =
-// launched); cudaErrorInvalidValue where the widths exceed shared memory.
-int trunk_f32_launch(const long long* table, int n_layers, const float* pe,
-                     float* out, int rows, int pe_cols, int out_cols,
-                     int a_cols, int b_cols, int fast_sine, void* stream) {
-  const size_t smem =
-      (size_t)kRowsF32 * (a_cols + kPadF32 + b_cols + kPadF32) * 4;
-  if (n_layers < 1 || rows < 1 || smem > (size_t)kMaxSmem)
+// Launches the f32 kernel on `stream` over the weights' ring copy `ring`
+// with the plan FoldedTrunk.f32_plan built (kF32Fields int64 a layer);
+// returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
+// plan the kernel does not serve.
+int trunk_f32_launch(const long long* plan, int n_layers, const float* ring,
+                     const float* pe, float* out, int rows, int out_cols,
+                     int width, int fast_sine, void* stream) {
+  if (rows < 1 || !ring || !valid_f32_plan(plan, n_layers, out_cols, width))
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.table = table;
+  F32Params p;
+  memset(&p, 0, sizeof(p));
+  int max_n = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const long long* f = plan + (size_t)l * kF32Fields;
+    p.layers[l].bias = reinterpret_cast<const float*>(f[F_B]);
+    p.layers[l].w = ring + f[F_W];
+    p.layers[l].k = (int)f[F_K];
+    p.layers[l].n = (int)f[F_N];
+    p.layers[l].in_k = (int)f[F_IN];
+    max_n = max_n > (int)f[F_N] ? max_n : (int)f[F_N];
+  }
   p.n_layers = n_layers;
   p.pe = pe;
   p.out = out;
   p.rows = rows;
-  p.pe_cols = pe_cols;
   p.out_cols = out_cols;
-  p.a_cols = a_cols;
-  p.b_cols = b_cols;
-  p.fast_sine = fast_sine;
-  const dim3 grid((rows + kRowsF32 - 1) / kRowsF32);
-  const cudaError_t err = cudaFuncSetAttribute(
-      trunk_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  trunk_f32<<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  p.width = width;
+  p.slot_floats = kKs * max_n;
+  return width <= kWideRows
+             ? launch_f32<64>(p, fast_sine, (cudaStream_t)stream)
+             : launch_f32<32>(p, fast_sine, (cudaStream_t)stream);
 }
 
 }  // extern "C"

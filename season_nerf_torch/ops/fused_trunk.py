@@ -23,8 +23,12 @@ launches.  The bf16 kernel (TMA + wgmma, clusters of two 64-row tiles)
 reads each layer's W' through a tensor map: :meth:`FoldedTrunk.launch_plan`
 says per layer what the map covers, and :meth:`FoldedTrunk.tensor_maps`
 encodes the maps once per folded trunk.  It takes padded widths up to
-``MAX_WIDTH`` and up to ``MAX_LAYERS`` layers.  The f32 kernel (FFMA)
-reads the device layer table of :meth:`FoldedTrunk.layer_table`.
+``MAX_WIDTH`` and up to ``MAX_LAYERS`` layers.  The f32 kernel (FFMA,
+a producer warp and a ring of weight slots) streams the f32 copy of every
+W' that :func:`fold_trunk` lays out as W'^T, the layers one after the other
+(:attr:`FoldedTrunk.ring_weights`), as :meth:`FoldedTrunk.f32_plan` says;
+it takes padded widths up to ``MAX_WIDTH_F32`` (64-row tiles up to 512,
+32-row tiles above) and up to ``MAX_LAYERS`` layers.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ KERNEL = "trunk_infer"
 CLUSTER = 2             # CTAs of the bf16 kernel's cluster (trunk_infer.cu)
 SLOT_ROWS = 128         # W' rows of a slot of its weight ring
 MAX_WIDTH = 512         # the bf16 kernel's widest padded layer
-MAX_LAYERS = 9          # the bf16 kernel's deepest trunk: fc1..fc8 + fc9
+MAX_LAYERS = 9          # the kernels' deepest trunk: fc1..fc8 + fc9
+MAX_WIDTH_F32 = 768     # the f32 kernel's widest padded layer
 
 
 def _pad_to(n: int) -> int:
@@ -66,52 +71,43 @@ class FoldedTrunk:
     ``weights[i]`` is ``[n_pad, k_pad]`` in the compute dtype and
     ``biases[i]`` ``[n_pad]`` float32.  ``inputs[i]`` names what layer i
     reads: ``"pe"`` (fc1), ``"h"``, or ``"h+pe"`` (the skip layer, laid
-    out as ``[h (width_pad) | PE (PE_PAD)]``)."""
+    out as ``[h (width_pad) | PE (PE_PAD)]``).  ``ring_weights`` (float32
+    folds only) is the f32 kernel's copy: every ``weights[i].t()``
+    (``[k_pad, n_pad]``) flattened, the layers one after the other."""
     weights: List[torch.Tensor]
     biases: List[torch.Tensor]
     inputs: List[str]
     width_pad: int
     out_features: int
     width: Optional[int] = None         # unpadded; None: width_pad
-    _table: Optional[torch.Tensor] = None
+    ring_weights: Optional[torch.Tensor] = None
     _plan: Optional[torch.Tensor] = None
+    _f32_plan: Optional[torch.Tensor] = None
     _maps: Optional[torch.Tensor] = None
 
     @property
     def dtype(self) -> torch.dtype:
         return self.weights[0].dtype
 
-    def buffer_plan(self):
-        """-> per layer (in_buf, in_off, out_buf) over the f32 kernel's two
-        shared-memory buffers: A = [h | PE], B = h.  The layer before the
-        skip writes A, so that the skip layer reads [h | PE] in place; the
-        other layers alternate.  fc1 reads A's PE columns, so it may write
-        A's h columns."""
-        n = len(self.inputs)
-        skip = self.inputs.index("h+pe") if "h+pe" in self.inputs else None
-        first_out = (skip - 1) % 2 if skip is not None else 1
-        plan, out_buf = [], first_out
-        for i in range(n):
-            if i == 0:
-                in_buf, in_off = 0, self.width_pad
-            else:
-                in_buf, in_off = plan[-1][2], 0
-                out_buf = 1 - in_buf
-            plan.append((in_buf, in_off, out_buf))
-        return plan
-
-    def layer_table(self) -> torch.Tensor:
-        """The int64 layer table the f32 kernel reads (``trunk_infer.cu``),
-        built once, on the weights' device."""
-        if self._table is None:
-            rows = []
-            for w, b, (ib, io, ob) in zip(self.weights, self.biases,
-                                          self.buffer_plan()):
-                rows.append([w.data_ptr(), b.data_ptr(), w.shape[1],
-                             w.shape[0], ib, io, ob, 0])
-            self._table = torch.tensor(rows, dtype=torch.int64,
-                                       device=self.weights[0].device)
-        return self._table
+    def f32_plan(self) -> torch.Tensor:
+        """The f32 kernel's plan, int64 on the host, one row per layer
+        (``F32Field`` in ``trunk_infer.cu``): b''s pointer, k, n, the row of
+        the tile's activations where the layer's input starts (the PE's rows
+        follow h's ``width_pad`` rows: fc1 starts there, every later layer
+        at 0), the offset of its W'^T in :attr:`ring_weights`, and the k of
+        its input where the PE starts (fc1: 0; the skip layer: after h's
+        ``width_pad``; -1 where none).  Built once."""
+        if self._f32_plan is None:
+            rows, off = [], 0
+            for w, b, kind in zip(self.weights, self.biases, self.inputs):
+                n, k = w.shape
+                rows.append([b.data_ptr(), k, n,
+                             self.width_pad if kind == "pe" else 0, off,
+                             {"pe": 0, "h": -1,
+                              "h+pe": self.width_pad}[kind]])
+                off += k * n
+            self._f32_plan = torch.tensor(rows, dtype=torch.int64)
+        return self._f32_plan
 
     def launch_plan(self) -> torch.Tensor:
         """The bf16 kernel's plan, int64 on the host, one row per layer
@@ -192,8 +188,10 @@ def fold_trunk(gnerf, dtype: torch.dtype = torch.float32,
         biases.append(torch.from_numpy(bp).to(device=device,
                                               dtype=torch.float32))
         inputs.append(kind)
+    ring = (torch.cat([w.t().reshape(-1) for w in weights])
+            if dtype == torch.float32 else None)
     return FoldedTrunk(weights, biases, inputs, wp,
-                       gnerf.fc9.linear.out_features, width)
+                       gnerf.fc9.linear.out_features, width, ring)
 
 
 def encode_points(x: torch.Tensor) -> torch.Tensor:
@@ -234,14 +232,31 @@ def _launcher():
         lib.trunk_bf16_encode.argtypes = [ptr, i32, i32, ptr]
         lib.trunk_bf16_launch.argtypes = [ptr, i32, ptr, ptr, ptr] \
             + [i32] * 3 + [ptr]
-        lib.trunk_f32_launch.argtypes = [ptr, i32, ptr, ptr] + [i32] * 6 \
-            + [ptr]
+        lib.trunk_f32_launch.argtypes = [ptr, i32, ptr, ptr, ptr] \
+            + [i32] * 4 + [ptr]
         for fn in (lib.trunk_bf16_encode, lib.trunk_bf16_launch,
                    lib.trunk_f32_launch):
             fn.restype = i32
         lib.trunk_infer_error_string.argtypes = [i32]
         lib.trunk_infer_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_f32_layout(folded: FoldedTrunk, device):
+    """Raise unless the f32 kernel can stream ``folded``: its ring copy
+    on ``device``, holding every W' as W'^T, up to MAX_WIDTH_F32 and
+    MAX_LAYERS."""
+    if folded.width_pad > MAX_WIDTH_F32 or len(folded.weights) > MAX_LAYERS:
+        raise ValueError(f"the f32 trunk kernel takes widths up to "
+                         f"{MAX_WIDTH_F32} and up to {MAX_LAYERS} layers, "
+                         f"got {folded.width_pad} and {len(folded.weights)}")
+    ring = folded.ring_weights
+    if ring is None or ring.dtype != torch.float32 \
+            or ring.device != device or not ring.is_contiguous() \
+            or ring.numel() != sum(w.numel() for w in folded.weights):
+        raise ValueError("the f32 trunk kernel needs the fold's ring copy "
+                         "of its weights (FoldedTrunk.ring_weights, built "
+                         "by fold_trunk) on the PE's device")
 
 
 def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
@@ -273,6 +288,8 @@ def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
         raise ValueError(f"the bf16 trunk kernel takes widths up to "
                          f"{MAX_WIDTH} and up to {MAX_LAYERS} layers, got "
                          f"{folded.width_pad} and {len(folded.weights)}")
+    if not bf16:
+        _check_f32_layout(folded, pe.device)
     n = pe.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"trunk kernel takes fewer than 2^31 rows, got {n}")
@@ -291,10 +308,10 @@ def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
                 stream)
         else:
             err = lib.trunk_f32_launch(
-                folded.layer_table().data_ptr(), len(folded.weights),
-                pe.data_ptr(), out.data_ptr(), n, PE_PAD,
-                folded.out_features, folded.width_pad + PE_PAD,
-                folded.width_pad, int(fast_sine), stream)
+                folded.f32_plan().data_ptr(), len(folded.weights),
+                folded.ring_weights.data_ptr(), pe.data_ptr(),
+                out.data_ptr(), n, folded.out_features, folded.width_pad,
+                int(fast_sine), stream)
     if err != 0:
         raise RuntimeError(
             f"trunk_infer launch failed: "

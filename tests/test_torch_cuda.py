@@ -19,18 +19,21 @@ machine with an H100, from the repository root:
 (``--noconftest``: the repository's ``tests/conftest.py`` imports JAX, which
 the port and these tests do not need.)"""
 
+import dataclasses
+import os
+
 import numpy as np
 import pytest
 import torch
 
 # the kernel tolerances, stated there
 from chip_smoke import (CARVE_TOL, CPU_CARD_ATOL, CPU_CARD_RTOL, FAST_N,
-                        FAST_RENDER, GEMM_REL_TOL, HIER_ATOL, HIER_GRAD_RTOL,
-                        HIER_RTOL, HIER_SMALL, K1_REL_TOL, K2_REL_TOL,
-                        RENDER_TOL, SWEEP_TOL, TOL, VAL_CHUNK,
+                        F32_RENDER_TOL, FAST_RENDER, GEMM_REL_TOL, HIER_ATOL,
+                        HIER_GRAD_RTOL, HIER_RTOL, HIER_SMALL, K1_REL_TOL,
+                        K2_REL_TOL, RENDER_TOL, SWEEP_TOL, TOL, VAL_CHUNK,
                         carve_recovers_surface, cpu_vs_card,
                         flagship_train_config, gemm_case, gemm_rel_err,
-                        make_model, train_params)
+                        make_model, train_params, write_legacy_model_dir)
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.ingest import save_world_artifact
 from season_nerf_torch.ops import fused_train as ftr
@@ -62,19 +65,26 @@ def _pe(n, device):
                             * 2 - 1).contiguous()
 
 
-# Full width at every row count that shapes the bf16 kernel's grid (64-row
-# tiles in clusters of two): one row (a cluster of one live and one idle
-# tile), one tile, a ragged odd tile count (777: 13 tiles), 4,133, the
-# exact-shadow chunk (5,120), 20,037, the fast render's chunk (163,840) and
-# the flagship render chunk (491,520); then narrow, shallow trunks.
-# Tolerances: chip_smoke.TOL.
+# Full width at every row count that shapes the kernels' grids (64-row
+# tiles, in clusters of two in bf16): one row (in bf16 a cluster of one live
+# and one idle tile), one tile, a ragged odd tile count (777: 13 tiles),
+# 4,133, the exact-shadow chunk (5,120), 20,037, the fast render's chunk
+# (163,840) and the flagship render chunk (491,520); then narrow, shallow
+# trunks; then, f32 only, widths above the bf16 kernel's 512, where the f32
+# kernel takes 32-row tiles, at ragged counts.  Tolerances: chip_smoke.TOL.
+SHAPES = [*[(512, 8, n) for n in (1, 64, 777, 4133, 5120, 20_000 + 37,
+                                  FAST_N, 491_520)],
+          (32, 2, 1000), (96, 7, 777), (128, 4, 64)]
+F32_WIDE = [(768, 8, 777), (768, 8, 20_000 + 37), (640, 3, 4133)]
+CASES = [(*shape, dt) for shape in SHAPES
+         for dt in (torch.bfloat16, torch.float32)] \
+    + [(*shape, torch.float32) for shape in F32_WIDE]
+
+
 @pytest.mark.parametrize("fast_sine", [True, False])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
-@pytest.mark.parametrize("width,depth,n", [
-    *[(512, 8, n) for n in (1, 64, 777, 4133, 5120, 20_000 + 37, FAST_N,
-                            491_520)],
-    (32, 2, 1000), (96, 7, 777), (128, 4, 64)])
+@pytest.mark.parametrize("width,depth,n,dtype", CASES, ids=[
+    f"{'bf16' if dt == torch.bfloat16 else 'f32'}-{w}-{d}-{n}"
+    for w, d, n, dt in CASES])
 def test_kernel_matches_plain_version(cuda, width, depth, n, dtype,
                                       fast_sine):
     folded = ft.fold_trunk(_model(width, depth).G_NeRF_net, dtype=dtype,
@@ -93,10 +103,12 @@ def test_kernel_matches_plain_version(cuda, width, depth, n, dtype,
     assert float(err.mean()) <= tol_mean
 
 
-def test_kernel_repeats_bit_for_bit(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_kernel_repeats_bit_for_bit(cuda, dtype):
     """Two launches on the same input give the same bytes: each output
     element's sums run in one fixed order (no atomics, no split)."""
-    folded = ft.fold_trunk(_model(512, 8).G_NeRF_net, dtype=torch.bfloat16,
+    folded = ft.fold_trunk(_model(512, 8).G_NeRF_net, dtype=dtype,
                            device=cuda)
     pe = _pe(20_000 + 37, cuda)
     for fast_sine in (True, False):
@@ -125,6 +137,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                          device=cuda)
     for bad in (deep, wide):
         with pytest.raises(ValueError, match="bf16 trunk kernel"):
+            ft.trunk_apply(pe, bad)
+    # the f32 kernel: padded widths up to 768, and the fold's ring copy of
+    # the weights on the PE's device
+    wide = ft.fold_trunk(_model(800, 2).G_NeRF_net, device=cuda)
+    no_ring = dataclasses.replace(folded, ring_weights=None)
+    cpu_ring = dataclasses.replace(folded,
+                                   ring_weights=folded.ring_weights.cpu())
+    for bad in (wide, no_ring, cpu_ring):
+        with pytest.raises(ValueError, match="f32 trunk kernel"):
             ft.trunk_apply(pe, bad)
     launches = ft.trunk_apply.launches
     assert ft.trunk_apply(pe[:0], folded).shape == (0, 16)
@@ -179,6 +200,40 @@ def test_render_16px_full_width_matches_the_cpu(cuda, tmp_path):
         assert np.isfinite(got[k]).all(), k
         np.testing.assert_allclose(got[k], want[k], atol=RENDER_TOL, rtol=0,
                                    err_msg=k)
+
+
+def test_legacy_f32_model_dir_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A model directory whose opts.json predates compute_dtype and
+    fast_sine loads as float32 with the exact sine, so every K3 launch is
+    the f32 kernel: a 16 px frame at full width, and a 12 px exact-shadow
+    frame of a narrow model, on the card against the CPU within
+    chip_smoke.F32_RENDER_TOL, launches as the chunking implies."""
+    cases = ((Config(), 16, False),
+             (Config(fc_units=64, fc_layers=4, n_samples=16, chunk=100), 12,
+              True))
+    for i, (cfg, size, shadow) in enumerate(cases):
+        d = str(tmp_path / str(i))
+        os.makedirs(d)
+        write_legacy_model_dir(d, make_model(cfg), cfg, (0.0, 30.0))
+        card = load_model_dir(d, device=cuda).renderer
+        cpu = load_model_dir(d, device="cpu").renderer
+        fused = card.model.G_NeRF_net.fused()
+        assert fused.folded.dtype == torch.float32 and not fused.fast_sine
+        assert fused.folded.ring_weights.is_cuda
+        args = ((70.0, 30.0), (45.0, 180.0), 0.5, size)
+        launches = ft.trunk_apply.launches
+        got = card.render_img(*args, exact_shadow=shadow)
+        rays, S = size * size, cfg.n_samples
+        chunks = lambda n: -(-n // cfg.chunk)
+        assert ft.trunk_apply.launches - launches == chunks(rays) + (
+            chunks(rays * S) * (S - 1) if shadow else 0)
+        want = cpu.render_img(*args, exact_shadow=shadow)
+        keys = ("Col_Img", "Shadow_Mask", "Height", "PS_Sum") + (
+            ("Exact_Shadow_Mask",) if shadow else ())
+        for k in keys:
+            assert np.isfinite(got[k]).all(), k
+            np.testing.assert_allclose(got[k], want[k], atol=F32_RENDER_TOL,
+                                       rtol=0, err_msg=f"{cfg.fc_units} {k}")
 
 
 def test_fast_render_16px_full_width_matches_the_cpu(cuda, tmp_path):

@@ -157,20 +157,57 @@ def test_layer_table_serves_every_depth_and_width(width, depth, fast_sine):
     np.testing.assert_allclose(got, want, atol=3e-4)
 
 
-def test_buffer_plan_reads_the_skip_concat_in_place():
-    """The layer before the skip layer writes buffer A ([h | PE]), so that
-    the skip layer reads its concatenation where it lies."""
-    for inputs in (["pe", "h", "h", "h", "h+pe", "h", "h", "h", "h"],
-                   ["pe", "h+pe", "h"], ["pe", "h"], ["pe", "h", "h+pe", "h"]):
-        f = ft.FoldedTrunk([], [], inputs, 32, 16)
-        plan = f.buffer_plan()
-        assert plan[0][:2] == (0, 32)              # fc1 reads A's PE columns
-        for i, kind in enumerate(inputs[1:], start=1):
-            assert plan[i][0] == plan[i - 1][2]    # reads what i-1 wrote
-            assert plan[i][1] == 0
-            assert plan[i][2] != plan[i][0]        # never in place
-            if kind == "h+pe":
-                assert plan[i][0] == 0
+@pytest.mark.parametrize("width", [32, 96, 512, 768])
+def test_f32_plan_streams_every_layer(width):
+    """The f32 kernel's host side: the fold's ring copy holds every W' as
+    W'^T [k, n], the layers one after the other; the plan (built once) says
+    per layer b', k, n, the activation row where its input starts (the PE's
+    rows follow h's width_pad rows: fc1 reads them alone, the skip layer
+    reads [h | PE] from row 0 on), the copy's offset, and the input's k
+    where the PE starts.  Then the kernel's walk, emulated in float64 on
+    the tile's K-major activations with W'^T read kKs = 8 rows a slot,
+    gives the plain version's x_enc."""
+    g = TTNeRF(layer_width=width, n_layers=8).eval().G_NeRF_net
+    folded = ft.fold_trunk(g)
+    plan = folded.f32_plan()
+    assert plan is folded.f32_plan()                     # built once
+    assert plan.dtype == torch.int64 and plan.device.type == "cpu"
+    wp = -(-width // 128) * 128
+    assert folded.width_pad == wp <= ft.MAX_WIDTH_F32
+    out_pad = -(-(width // 2) // 128) * 128
+    want_k = [64] + [wp] * 3 + [wp + 64] + [wp] * 4
+    want_n = [wp] * 8 + [out_pad]
+    want_in = [wp] + [0] * 8
+    want_pe = [0, -1, -1, -1, wp, -1, -1, -1, -1]
+    ring = folded.ring_weights
+    assert ring.dtype == torch.float32 and ring.is_contiguous()
+    assert ring.numel() == sum(k * n for k, n in zip(want_k, want_n))
+    off = 0
+    for l, row in enumerate(plan.tolist()):
+        w, b = folded.weights[l], folded.biases[l]
+        assert row == [b.data_ptr(), want_k[l], want_n[l], want_in[l], off,
+                       want_pe[l]], l
+        assert torch.equal(ring[off:off + w.numel()].view(want_k[l],
+                                                          want_n[l]), w.t())
+        off += w.numel()
+    assert len(plan) <= ft.MAX_LAYERS
+    # the kernel's walk: act[k][row], the PE in rows wp .. wp + 63; each
+    # layer reads rows in_k .. in_k + k - 1 and writes rows 0 .. n - 1
+    rows = 5
+    pe = ft.encode_points(torch.from_numpy(np.random.default_rng(width)
+                          .uniform(-1, 1, (rows, 3)).astype(np.float32)))
+    act = np.zeros((wp + 64, rows))
+    act[wp:] = pe.double().numpy().T
+    r = ring.double().numpy()
+    for l, (bp, k, n, in_k, w_off, pe_k) in enumerate(plan.tolist()):
+        z = np.repeat(folded.biases[l].double().numpy()[:, None], rows, 1)
+        for kc in range(0, k, 8):            # one ring slot
+            slot = r[w_off + kc * n:w_off + (kc + 8) * n].reshape(8, n)
+            z += slot.T @ act[in_k + kc:in_k + kc + 8]
+        act[:n] = np.sin(z)
+    want = ft.trunk_apply_reference(pe, folded).double().numpy()
+    np.testing.assert_allclose(act[:folded.out_features].T, want,
+                               atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("width", [32, 96, 512])
