@@ -25,6 +25,13 @@ Phases, each fatal on failure:
    - K3's f32 kernel also at width 768 (32-row tiles), and its nine layer
      products alone as cuBLAS f32 GEMMs (``torch.matmul``, TF32 off), a
      yardstick the port never calls;
+   - K3 above the flagship's shapes: the bf16 kernel's wide instance at
+     padded widths 640, 768 and 1024, the f32 kernel at 1024, and 11 and
+     17 layers in both, at the flagship render chunk (timed, beside the
+     bound) and a ragged row count, both sines, with ptxas's registers and
+     spills of those instances; a 16 px frame of a 640-wide bf16 model on
+     the card against the CPU; ``load_model_dir`` refusing a padded width
+     of 1152 before any launch; the flagship times beside the parent's;
    and time the flagship cases with CUDA events beside the kernel's bound
    and its plain version (the GEMMs beside ``torch.matmul``'s bf16 time),
    K3 in bf16 and f32 also at the validation and fast render chunks (two
@@ -51,7 +58,15 @@ Phases, each fatal on failure:
    ``compute_dtype`` and ``fast_sine``, so that it loads as float32 with
    ``sinf`` and every K3 launch is the f32 kernel (``/render?size=128``,
    ``/dsm?size=128``, a 16 px exact-shadow frame, 10 warm 128 px frames, a
-   16 px frame against the CPU to 1e-3, one frame profiled);
+   16 px frame against the CPU to 1e-3, one frame profiled); then a
+   reference-format checkpoint made from the seed at the render cell's
+   width, converted by ``tools/convert_reference_model`` into a legacy
+   directory and served (10 warm 128 px frames, every K3 launch the f32
+   kernel, a 16 px frame against the CPU); then ``tools/make_movie`` on the
+   render cell's model (8 frames of 128 px, the default orbit: seconds a
+   frame, K3 launches against frames x chunks, the GIF decoded back), a
+   3-frame 16 px movie on the card against the CPU and ``pipeline=2``
+   against ``pipeline=1`` byte for byte;
 5. the training main path: the flagship training config with
    ``pallas_trunk`` through ``Trainer`` on the synthetic site of
    ``bench.py`` in phase 1 (DSM prior on), one warm step and 20 timed
@@ -80,7 +95,10 @@ Phases, each fatal on failure:
    held-out image, per save point, plus the final report), K1/K2's (2 and
    1 a step), that ``Final_Model.nn`` holds the save point of the lowest
    logged ``Prior_Height_Error`` and its weights; then repeat one save
-   point's render on the CPU (plain versions) from its checkpoint; print
+   point's render on the CPU (plain versions) from its checkpoint; read
+   the run's TensorBoard event file (every record's masked CRC-32C; as
+   many scalar events as metrics.jsonl lines, a render and a height map
+   of every held-out view per report); print
    the seconds spent in validation and in training (at this size a
    functional check, not the validation layer's metric: phase 7 gives
    that);
@@ -113,14 +131,18 @@ Phases, each fatal on failure:
    share, K3's launches against the chunking, finite scores and every
    file;
 8. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
-   summed over the main paths, and K3's f32 kernel with the legacy
-   directory's launches), then, as the last line,
+   summed over the main paths, K3's f32 kernel with the legacy and the
+   converted directories' launches, and K3's wide bf16 instance with the
+   640-wide frame's), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only f32`` builds K3 alone and runs only its float32 phases (the f32
 kernel against its plain version and timed, the cuBLAS GEMMs, the legacy
-directory served) and prints no contract lines: run from an unpacked copy
-of another commit, it compares two trees of the port in one call.
+directory served); ``--only k3`` builds K3 alone, times it at the flagship
+render chunk in both dtypes and sines and, where the port has them, holds
+the wider and deeper trunks.  Neither prints contract lines: run from an
+unpacked copy of another commit, each compares two trees of the port in
+one call.
 
 Between 6 and 7, the evaluation path: ``cli.run_test`` on the synthetic
 site of phase 6 (8 steps, 2 save points, ``best_geometry``, then
@@ -133,8 +155,8 @@ model's analysis, and its regional evaluation, on the card and on the CPU
 the aligned time and the height shift, the shadow test's statistics, the
 season walk's EM statistics and the prototype baseline held against each
 other.  Before
-phase 2, the host's scipy, cv2, imageio, tabulate, matplotlib and PIL
-are looked up (``importlib.util.find_spec``); scipy must be there.
+phase 2, the host's scipy, cv2, imageio, tabulate, matplotlib, PIL and
+tensorboard are looked up (``importlib.util.find_spec``); scipy must be there.
 
 Exits non-zero, without the last line, when no CUDA device is visible or the
 port is not beside this script.  Every measurement also goes, as JSON, to
@@ -274,19 +296,26 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 # --- the model --------------------------------------------------------------
-@torch.no_grad()
 def calibrate_bn_(gnerf, n_points: int = 4096, seed: int = SEED):
-    """Give every trunk BatchNorm statistics that are not trivial: the
+    """Give every trunk BatchNorm statistics that are not trivial
+    (:func:`calibrate_layers_` of the model's trunk)."""
+    from season_nerf_torch.ops.fused_trunk import trunk_layers
+    calibrate_layers_(trunk_layers(gnerf), n_points, seed)
+
+
+@torch.no_grad()
+def calibrate_layers_(layers, n_points: int = 4096, seed: int = SEED):
+    """The BatchNorms of a trunk given as [(SineLayer, input kind)]: the
     running mean and (biased) variance of the layer's own pre-activation
     over random points in the cube, and a scale and shift drawn around 1
-    and 0.  Runs in f32; the model lies on the CPU."""
+    and 0.  Runs in f32; the layers lie on the CPU."""
     from season_nerf_torch.models.encodings import positional_encode
-    from season_nerf_torch.ops.fused_trunk import PE_FREQS, trunk_layers
+    from season_nerf_torch.ops.fused_trunk import PE_FREQS
     gen = torch.Generator().manual_seed(seed)
     pts = torch.rand(n_points, 3, generator=gen) * 2 - 1
     pe = positional_encode(pts, PE_FREQS)
     h = None
-    for layer, kind in trunk_layers(gnerf):
+    for layer, kind in layers:
         x = (pe if kind == "pe" else torch.cat([h, pe], 1)
              if kind == "h+pe" else h)
         z = layer.omega_0 * (x @ layer.linear.weight.t() + layer.linear.bias)
@@ -307,6 +336,31 @@ def make_model(cfg, seed=SEED):
     model = model_from_config(cfg)
     calibrate_bn_(model.G_NeRF_net, seed=seed)
     return model
+
+
+def deep_trunk_layers(width: int, fc_layers: int, seed: int = SEED):
+    """A seeded trunk shaped as GNeRF's would be at ``fc_layers`` above 8:
+    fc1 from the PE, BatchNorm on every later layer, the PE concatenated
+    back in at fc_layers // 2 + 1, a half-width last layer; SIREN init,
+    statistics calibrated; as [(SineLayer, input kind)] for
+    ``fused_trunk.fold_layers``.  Neither package builds such a model (at
+    fc_layers 9 and above a trunk layer would take the name fc9 of the
+    half-width layer), so K3's deeper plans are held on these alone."""
+    from season_nerf_torch.models.siren import SineLayer
+    from season_nerf_torch.models.tnerf import _siren_init_
+    from season_nerf_torch.ops.fused_trunk import PE_DIM
+    torch.manual_seed(seed)
+    skip = fc_layers // 2 + 1
+    layers = []
+    for i in range(1, fc_layers + 1):
+        kind = "pe" if i == 1 else "h+pe" if i == skip else "h"
+        fan = {"pe": PE_DIM, "h": width, "h+pe": width + PE_DIM}[kind]
+        layers.append((_siren_init_(SineLayer(fan, width, use_norm=i > 1),
+                                    i == 1), kind))
+    layers.append((_siren_init_(SineLayer(width, max(width // 2, 1),
+                                          use_norm=True), False), "h"))
+    calibrate_layers_(layers, seed=seed)
+    return layers
 
 
 def trunk_macs(gnerf) -> int:
@@ -435,6 +489,176 @@ def check_trunk_small_widths(device, trunks=SMALL_TRUNKS):
                 if err > TOL[dtype][0]:
                     fail(f"trunk width {width} depth {depth} {dtype} "
                          f"fast_sine={fast_sine}: {err}")
+
+
+# K3 at the shapes above the flagship's: (label, width, fc_layers, dtypes).
+# The bf16 kernel's wide instance (the cluster's two CTAs share a tile and
+# split its columns) at padded widths 640, 768 and 1024, the f32 kernel's
+# widest (four rows of W'^T a ring slot), and trunks deeper than any model
+# builds (deep_trunk_layers: 11 and 17 kernel layers) in both kernels.
+WIDE_TRUNKS = (("bf16-640", 640, 8, (torch.bfloat16,)),
+               ("bf16-768", 768, 8, (torch.bfloat16,)),
+               ("bf16-1024", 1024, 8, (torch.bfloat16,)),
+               ("f32-1024", 1024, 8, (torch.float32,)),
+               ("deep-10", 512, 10, (torch.bfloat16, torch.float32)),
+               ("deep-16", 512, 16, (torch.bfloat16, torch.float32)))
+WIDE_NS = (FLAGSHIP_N, RAGGED_N)
+# K3 at the flagship render chunk before the wider and deeper shapes, as
+# PERF.md's kernel table records it (NVIDIA H100 80GB HBM3, 700.00 W); a
+# comparison that counts runs the parent's tree in the same call
+PARENT_K3_MS = {"trunk_infer[bfloat16,fast_sin]": 5.349,
+                "trunk_infer[float32,fast_sin]": 45.83,
+                "trunk_infer[float32,sinf]": 52.50}
+
+
+# Deeper than the flagship, a trunk's output moves with the summation order
+# alone by more than at nine layers, where TOL was set: each layer amplifies
+# the rounding of its input (H100, 17 layers: the kernel against the plain
+# version, bf16 max 0.30 and mean 5.9e-3, f32 mean 1.2e-5, growing ~1.5-1.7x
+# every two layers from nine on).  What the order alone moves a trunk is
+# probed by the plain version summing each layer in float64 against the
+# plain version (:func:`order_moves`); at the wider and deeper trunks TOL is
+# scaled by how much more that moves the trunk than the flagship's on the
+# same points (:func:`order_tolerance`, never below TOL).
+
+
+def order_moves(pe, folded, fast_sine, want) -> tuple:
+    """(max, mean) |plain version summing in float64 - ``want``|, where
+    ``want`` is the plain version's output on ``pe``."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    d = (ft.trunk_apply_reference(pe, folded, fast_sine, torch.float64)
+         - want).abs()
+    return float(d.max()), float(d.mean())
+
+
+def order_tolerance(order, flagship_order, dtype) -> tuple:
+    """TOL[dtype] scaled by ``order`` / ``flagship_order`` (max, mean;
+    :func:`order_moves` of a trunk and of the flagship's), never below."""
+    tol_max, tol_mean = TOL[dtype]
+    return (tol_max * max(1.0, order[0] / flagship_order[0]),
+            tol_mean * max(1.0, order[1] / flagship_order[1]))
+
+
+def wide_trunk_layers(width: int, fc_layers: int):
+    """The trunk of a seeded model at ``width`` (BatchNorm calibrated), or
+    :func:`deep_trunk_layers` above the depth a model builds."""
+    from season_nerf_torch.config import Config
+    from season_nerf_torch.ops.fused_trunk import trunk_layers
+    if fc_layers > 8:
+        return deep_trunk_layers(width, fc_layers)
+    return trunk_layers(make_model(Config(fc_units=width,
+                                          fc_layers=fc_layers)).G_NeRF_net)
+
+
+def check_trunk_wide(device, trunks=WIDE_TRUNKS, ns=WIDE_NS) -> dict:
+    """K3 against its plain version at the wider and deeper trunks of
+    ``trunks``, at each row count of ``ns`` with both sines, held to
+    :func:`order_tolerance` (against the flagship trunk's order moves on
+    the same points);
+    timed at the flagship render chunk (CUDA events) beside its bound
+    (operations at the dtype's peak, or the bytes) and its plain version.
+    A launch of one row (in bf16 a cluster's one live tile; the wide
+    instance's two CTAs on one tile) gives, byte for byte, that point's row
+    of a launch of ``ns[-1]`` rows: a row's sums do not depend on the other
+    rows, and a mean error over one row says nothing at TOL's scale."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    results = {}
+    flagship_layers = wide_trunk_layers(512, 8)
+    flagship_order = {}         # (dtype, fast_sine, n) -> order_moves
+
+    def points(n):
+        gen = torch.Generator(device=device).manual_seed(SEED + n)
+        return ft.encode_points(torch.rand(n, 3, generator=gen,
+                                           device=device) * 2 - 1)
+
+    def flagship(dtype, fast_sine, n):
+        key = (dtype, fast_sine, n)
+        if key not in flagship_order:
+            f = ft.fold_layers(flagship_layers, dtype, device)
+            pe = points(n)
+            flagship_order[key] = order_moves(
+                pe, f, fast_sine, ft.trunk_apply_reference(pe, f, fast_sine))
+        return flagship_order[key]
+
+    for label, width, fc_layers, dtypes in trunks:
+        layers = wide_trunk_layers(width, fc_layers)
+        macs = sum(layer.linear.in_features * layer.linear.out_features
+                   for layer, _ in layers)
+        for dtype in dtypes:
+            folded = ft.fold_layers(layers, dtype, device)
+            bf16 = dtype == torch.bfloat16
+            for fast_sine in (True, False):
+                name = (f"{label}[{'bfloat16' if bf16 else 'float32'},"
+                        f"{'fast_sin' if fast_sine else 'sinf'}]")
+                for n in ns:
+                    pe = points(n)
+                    got = ft.trunk_apply(pe, folded, fast_sine)
+                    want = ft.trunk_apply_reference(pe, folded, fast_sine)
+                    torch.cuda.synchronize()
+                    if got.shape != want.shape or \
+                            not torch.isfinite(got).all():
+                        fail(f"{name} N={n}: shape {tuple(got.shape)} or "
+                             f"non-finite output")
+                    err = (got - want).abs()
+                    order = order_moves(pe, folded, fast_sine, want)
+                    flag = flagship(dtype, fast_sine, n)
+                    tol_max, tol_mean = order_tolerance(order, flag, dtype)
+                    rec = {"n": n, "width_pad": folded.width_pad,
+                           "layers": len(folded.weights),
+                           "max_abs_err": float(err.max()),
+                           "mean_abs_err": float(err.mean()),
+                           "order": order, "flagship_order": flag,
+                           "tol_max": tol_max, "tol_mean": tol_mean}
+                    if n == FLAGSHIP_N:
+                        rec["repeat_equal"] = bool(torch.equal(
+                            got, ft.trunk_apply(pe, folded, fast_sine)))
+                        rec["ms"] = cuda_ms(
+                            lambda: ft.trunk_apply(pe, folded, fast_sine),
+                            5 if bf16 else 3)
+                        rec["plain_ms"] = cuda_ms(
+                            lambda: ft.trunk_apply_reference(pe, folded,
+                                                             fast_sine), 1)
+                        flops = 2.0 * macs * n
+                        nbytes = (pe.numel() * 4 + got.numel() * 4
+                                  + sum(t.numel() * t.element_size()
+                                        for t in folded.weights
+                                        + folded.biases))
+                        t_ops = flops / (PEAK_BF16_FLOPS if bf16
+                                         else PEAK_F32_FLOPS) * 1e3
+                        t_bytes = nbytes / PEAK_BYTES * 1e3
+                        rec.update(flops=flops, bytes=nbytes,
+                                   bound_ms=max(t_ops, t_bytes),
+                                   bound_by="operations" if t_ops >= t_bytes
+                                   else "bytes")
+                    log(f"  {name} N={n}: max_abs_err "
+                        f"{rec['max_abs_err']:.3e} (tol {tol_max:.3g}), "
+                        f"mean {rec['mean_abs_err']:.3e} (tol "
+                        f"{tol_mean:.3g}); the order alone moves it "
+                        f"{order[0]:.3e} / {order[1]:.3e}, the flagship's "
+                        f"{flag[0]:.3e} / {flag[1]:.3e}"
+                        + (f", kernel {rec['ms']:.4f} ms, plain "
+                           f"{rec['plain_ms']:.3f} ms, bound "
+                           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                           f"repeat equal {rec['repeat_equal']}"
+                           if "ms" in rec else ""))
+                    results.setdefault(name, []).append(rec)
+                    if rec["max_abs_err"] > tol_max \
+                            or rec["mean_abs_err"] > tol_mean:
+                        fail(f"{name} N={n} disagrees with its plain version")
+                    if not rec.get("repeat_equal", True):
+                        fail(f"{name} N={n}: two launches differ")
+                    if n == ns[-1]:
+                        one = ft.trunk_apply(pe[:1].contiguous(), folded,
+                                             fast_sine)
+                        rec["one_row_equal"] = bool(torch.equal(one,
+                                                                got[:1]))
+                        if not rec["one_row_equal"]:
+                            fail(f"{name}: a launch of one row differs from "
+                                 f"its row of a launch of {n}")
+                    del got, want, pe, err
+            del folded
+        torch.cuda.empty_cache()
+    return results
 
 
 def f32_layer_gemms(model, device, ns=(FLAGSHIP_N, VAL_N, FAST_N)) -> dict:
@@ -1148,6 +1372,353 @@ def legacy_f32_path(model, cfg, device) -> dict:
     return report
 
 
+# --- K3 above the flagship's shapes, reference checkpoints, movies ----------
+WIDE_FRAME_UNITS = 640          # the wide bf16 model served in phase (a)
+REFUSED_UNITS = 1152            # a padded width K3 refuses
+MOVIE_FRAMES, MOVIE_SIZE = 8, 128
+MOVIE_SMALL = (3, 16)           # frames, px: the movie card against CPU
+# a 16 px bf16 movie frame, card against CPU, in uint8 levels: RENDER_TOL
+# on the colours (5e-2 x 255 = 12.75)
+MOVIE_LEVELS = 13
+
+
+def card_vs_cpu_dir(d, tol, device, **load_kw) -> dict:
+    """A 16 px frame of the model directory ``d`` on the card against the
+    CPU (:func:`card_vs_cpu_render`), with K3's launches on the card."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.render.loading import load_model_dir
+    card = load_model_dir(d, device=device, **load_kw).renderer
+    cpu = load_model_dir(d, device="cpu", **load_kw).renderer
+    before = ft.trunk_apply.launches
+    diffs = card_vs_cpu_render(card, cpu, tol)
+    return {"diffs": diffs, "k3_launches": ft.trunk_apply.launches - before,
+            "dtype": str(card.model.G_NeRF_net.fused().folded.dtype)}
+
+
+def wide_path(device, trunk, ptxas) -> dict:
+    """Phase (a): K3 at the wider and deeper trunks against its plain
+    version (:func:`check_trunk_wide`) with ptxas's registers and spills of
+    each instance they take; a 16 px frame of a 640-wide bf16 model on the
+    card against the CPU (the wide instance on the main path, its launches
+    counted from 0); ``load_model_dir`` refusing a padded width of 1152
+    before any launch; the flagship times beside the parent's."""
+    from season_nerf_torch.config import Config
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.render.loading import load_model_dir
+    report = {"ptxas": {k: v for k, v in ptxas_entries(ptxas, "trunk_")
+                        .items() if "wide" in k or "Li4E" in k}}
+    for name, lines in report["ptxas"].items():
+        log(f"  ptxas {name[-40:]}: {'; '.join(lines)}")
+    report["trunks"] = check_trunk_wide(device)
+    with tempfile.TemporaryDirectory() as d:
+        cfg = Config(fc_units=WIDE_FRAME_UNITS)
+        write_model_dir(d, make_model(cfg), cfg, (0.0, 30.0))
+        ft.trunk_apply.launches = 0
+        report["frame_16px"] = rec = card_vs_cpu_dir(d, RENDER_TOL, device)
+        report["k3_launches"] = ft.trunk_apply.launches
+        if report["k3_launches"] != -(-16 * 16 // cfg.chunk):
+            fail(f"the {WIDE_FRAME_UNITS}-wide frame launched K3 "
+                 f"{report['k3_launches']} times")
+        log(f"  {WIDE_FRAME_UNITS}-wide bf16 model, 16 px frame: K3 "
+            f"{rec['k3_launches']} launch(es), card against CPU "
+            f"{rec['diffs']}")
+    with tempfile.TemporaryDirectory() as d:
+        Config(fc_units=REFUSED_UNITS).save_json(os.path.join(d,
+                                                              "opts.json"))
+        with open(os.path.join(d, "Final_Model.nn"), "wb") as f:
+            f.write(b"never read")
+        before = ft.trunk_apply.launches
+        try:
+            load_model_dir(d, device=device)
+            fail(f"load_model_dir took a padded width of {REFUSED_UNITS}")
+        except ValueError as e:
+            report["refusal"] = str(e)
+        if "up to 1024" not in report["refusal"] \
+                or ft.trunk_apply.launches != before:
+            fail(f"the refusal of {REFUSED_UNITS}: {report['refusal']}")
+        log(f"  load_model_dir, fc_units {REFUSED_UNITS}: refused before "
+            f"any launch: {report['refusal']}")
+    report["flagship_ms"] = {}
+    for name, parent in PARENT_K3_MS.items():
+        ms = trunk[name][0]["ms"]
+        report["flagship_ms"][name] = ms
+        log(f"  flagship {name}: {ms:.4f} ms (PERF.md records {parent} ms "
+            f"for the parent)")
+    return report
+
+
+def write_reference_checkpoint(path: str, cfg, seed: int = SEED):
+    """A reference-format checkpoint (a torch state dict with the reference
+    T_NeRF's names, its unused heads and num_batches_tracked) of a seeded
+    model at ``cfg``'s width, BatchNorm calibrated, by ``torch.save``."""
+    torch.save(make_model(cfg, seed).state_dict(), path)
+
+
+def converted_model_dir(d: str, ckpt: str, cfg, h_range):
+    """``d`` as a model directory of ``ckpt`` converted by the port's tool
+    (``tools/convert_reference_model``), with an opts.json of ``cfg``
+    without LEGACY_KEYS: float32 with the exact sine, as the reference
+    trained."""
+    from season_nerf_torch.data.ingest import save_world_artifact
+    from season_nerf_torch.tools import convert_reference_model
+    convert_reference_model.main([
+        "--torch_model", ckpt, "--fc_units", str(cfg.fc_units),
+        "--n_classes", str(cfg.number_low_frequency_cases), "--out",
+        os.path.join(d, "Final_Model.nn")])
+    cfg.save_json(os.path.join(d, "opts.json"))
+    with open(os.path.join(d, "opts.json")) as f:
+        opts = json.load(f)
+    for k in LEGACY_KEYS:
+        opts.pop(k)
+    with open(os.path.join(d, "opts.json"), "w") as f:
+        json.dump(opts, f, indent=1)
+    save_world_artifact(os.path.join(d, "W2C_W2L_H.npy"), None, None,
+                        h_range)
+
+
+def reference_path(cfg, device) -> dict:
+    """Phase (b): a reference checkpoint from the seed at the render cell's
+    width, converted by the port's tool and served over HTTP: every K3
+    launch the f32 kernel, 10 warm 128 px frames (median, max), a 16 px
+    frame on the card against the CPU within F32_RENDER_TOL."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.render.serving import RenderService, make_server
+    report = {}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "reference_Final_Model.nn")
+        write_reference_checkpoint(ckpt, cfg)
+        model_dir = os.path.join(d, "converted")
+        os.makedirs(model_dir)
+        t0 = time.perf_counter()
+        converted_model_dir(model_dir, ckpt, cfg, (0.0, 30.0))
+        report["convert_s"] = time.perf_counter() - t0
+        service = RenderService(model_dir, device=device)
+        fused = service.renderer.model.G_NeRF_net.fused()
+        if fused.folded.dtype != torch.float32 or fused.fast_sine:
+            fail(f"the converted directory loaded as {fused.folded.dtype}, "
+                 f"fast_sine={fused.fast_sine}; want float32 with sinf")
+        server = make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            ft.trunk_apply.launches = 0
+            report["latency"] = lat = latency(server.server_address[1],
+                                              STEADY_PATH, STEADY_REQUESTS)
+            report["k3_launches"] = ft.trunk_apply.launches
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        want = STEADY_REQUESTS * -(-128 * 128 // cfg.chunk)
+        log(f"  converted in {report['convert_s']:.2f} s; GET {STEADY_PATH} "
+            f"x {lat['n']}: median {lat['median_s']:.4f} s, max "
+            f"{lat['max_s']:.4f} s; K3 (f32) {report['k3_launches']} "
+            f"launches (the chunking implies {want})")
+        if report["k3_launches"] != want:
+            fail(f"the converted model launched K3 {report['k3_launches']} "
+                 f"times; the chunking implies {want}")
+        report["frame_16px"] = card_vs_cpu_dir(model_dir, F32_RENDER_TOL,
+                                               device)
+    return report
+
+
+def decode_gif(data: bytes) -> list:
+    """The frames of a GIF as [H, W, 3] uint8 arrays: enough of the format
+    to read what ``utils/gif.py`` writes back (each frame with a local
+    palette, LZW-coded)."""
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF")
+    w, h, flags = struct.unpack("<HHB", data[6:11])
+    at, frames, palette = 13, [], None
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        palette = np.frombuffer(data[13:13 + n], np.uint8).reshape(-1, 3)
+        at += n
+    while data[at] != 0x3B:
+        if data[at] == 0x21:                  # an extension: skip it
+            at += 2
+            while data[at]:
+                at += data[at] + 1
+            at += 1
+            continue
+        x, y, fw, fh, fl = struct.unpack("<HHHHB", data[at + 1:at + 10])
+        at += 10
+        pal = palette
+        if fl & 0x80:
+            n = 3 << ((fl & 7) + 1)
+            pal = np.frombuffer(data[at:at + n], np.uint8).reshape(-1, 3)
+            at += n
+        min_size, at = data[at], at + 1
+        blocks = bytearray()
+        while data[at]:
+            blocks += data[at + 1:at + 1 + data[at]]
+            at += data[at] + 1
+        at += 1
+        idx = _lzw_decode(bytes(blocks), min_size)[:fw * fh]
+        frames.append(pal[np.asarray(idx, np.int64)].reshape(fh, fw, 3))
+    return frames
+
+
+def _lzw_decode(data: bytes, min_size: int) -> list:
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    bits = int.from_bytes(data, "little")
+    pos, size, out = 0, min_size + 1, []
+    table, prev = None, None
+    while pos + size <= len(data) * 8:
+        code = (bits >> pos) & ((1 << size) - 1)
+        pos += size
+        if code == clear:
+            table = [[i] for i in range(clear)] + [None, None]
+            size, prev = min_size + 1, None
+            continue
+        if code == end:
+            break
+        if prev is None:
+            entry = table[code]
+        else:
+            entry = (table[code] if code < len(table)
+                     else prev + [prev[0]])
+            table.append(prev + [entry[0]])
+            if len(table) == 1 << size and size < 12:
+                size += 1
+        out += entry
+        prev = entry
+    return out
+
+
+def movie_path(model, cfg, device) -> dict:
+    """Phase (c): ``tools/make_movie`` on the render cell's model directory
+    (8 frames of 128 px, the default orbit script), timed a frame, K3's
+    launches against frames x chunks; then a 3-frame 16 px movie on the
+    card against the CPU (MOVIE_LEVELS), ``pipeline=2`` against
+    ``pipeline=1`` byte for byte on the card, and the GIF decoded back."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.render.loading import load_model_dir
+    from season_nerf_torch.render.movie import render_movie
+    from season_nerf_torch.tools import make_movie
+    report = {}
+    with tempfile.TemporaryDirectory() as d:
+        write_model_dir(d, model, cfg, (0.0, 30.0))
+        out = os.path.join(d, "movie.mp4")
+        ft.trunk_apply.launches = 0
+        t0 = time.perf_counter()
+        path = make_movie.main(["--Model_Location", d, "--frames",
+                                str(MOVIE_FRAMES), "--size", str(MOVIE_SIZE),
+                                "--out", out, "--device", str(device)])
+        report["make_movie_s"] = time.perf_counter() - t0
+        report["k3_launches"] = ft.trunk_apply.launches
+        want = MOVIE_FRAMES * -(-MOVIE_SIZE ** 2 // cfg.chunk)
+        with open(path, "rb") as f:
+            frames = decode_gif(f.read())
+        report["gif_frames"] = len(frames)
+        if path != os.path.join(d, "movie.gif") or len(frames) != \
+                MOVIE_FRAMES or frames[0].shape != (MOVIE_SIZE,) * 2 + (3,):
+            fail(f"make_movie wrote {path} with {len(frames)} frames")
+        if report["k3_launches"] != want:
+            fail(f"the movie launched K3 {report['k3_launches']} times; "
+                 f"{MOVIE_FRAMES} frames x chunks imply {want}")
+        card = load_model_dir(d, device=device)
+        script = make_movie.default_script()
+        render_movie(card.renderer, script, 2, MOVIE_SIZE)      # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_movie(card.renderer, script, MOVIE_FRAMES, MOVIE_SIZE)
+        torch.cuda.synchronize()
+        report["s_per_frame"] = (time.perf_counter() - t0) / MOVIE_FRAMES
+        n, size = MOVIE_SMALL
+        got = render_movie(card.renderer, script, n, size, pipeline=1)
+        two = render_movie(card.renderer, script, n, size, pipeline=2)
+        cpu = render_movie(load_model_dir(d, device="cpu").renderer, script,
+                           n, size, pipeline=1)
+        report["pipeline_equal"] = bool(np.array_equal(got, two))
+        report["card_vs_cpu_levels"] = int(np.abs(
+            got.astype(int) - cpu.astype(int)).max())
+    log(f"  make_movie, {MOVIE_FRAMES} frames of {MOVIE_SIZE} px: "
+        f"{report['make_movie_s']:.2f} s with the load, K3 "
+        f"{report['k3_launches']} launches (implied {want}); warm "
+        f"{report['s_per_frame']:.4f} s a frame; {n} frames of {size} px, "
+        f"card against CPU {report['card_vs_cpu_levels']} uint8 levels "
+        f"(tol {MOVIE_LEVELS}), pipeline=2 equal to pipeline=1: "
+        f"{report['pipeline_equal']}; GIF decoded: {len(frames)} frames")
+    if not report["pipeline_equal"]:
+        fail("pipeline=2 frames differ from pipeline=1's")
+    if report["card_vs_cpu_levels"] > MOVIE_LEVELS:
+        fail("the card's movie disagrees with the CPU's")
+    return report
+
+
+def _proto_fields(data: bytes) -> list:
+    """(field number, value) of a protobuf message: varints as ints, 64-
+    and 32-bit fields as bytes, length-delimited ones as bytes."""
+    out, at = [], 0
+    while at < len(data):
+        key, at = _read_varint(data, at)
+        number, wire = key >> 3, key & 7
+        if wire == 0:
+            value, at = _read_varint(data, at)
+        elif wire == 1:
+            value, at = data[at:at + 8], at + 8
+        elif wire == 5:
+            value, at = data[at:at + 4], at + 4
+        elif wire == 2:
+            n, at = _read_varint(data, at)
+            value, at = data[at:at + n], at + n
+        else:
+            raise ValueError(f"protobuf wire type {wire}")
+        out.append((number, value))
+    return out
+
+
+def _read_varint(data: bytes, at: int):
+    n = shift = 0
+    while True:
+        b = data[at]
+        n |= (b & 0x7F) << shift
+        at, shift = at + 1, shift + 7
+        if not b & 0x80:
+            return n, at
+
+
+def read_event_files(logs_dir: str) -> dict:
+    """Every record of the TensorBoard event files in ``logs_dir``, each
+    masked CRC-32C checked: {"file_version": [...], "scalars": {tag:
+    [(step, value)]}, "images": {tag: [(step, height, width)]}}."""
+    from season_nerf_torch.utils.logging import masked_crc32c
+    out = {"file_version": [], "scalars": {}, "images": {}, "files": 0}
+    for name in sorted(os.listdir(logs_dir)):
+        if not name.startswith("events.out.tfevents."):
+            continue
+        out["files"] += 1
+        with open(os.path.join(logs_dir, name), "rb") as f:
+            data = f.read()
+        at = 0
+        while at < len(data):
+            head = data[at:at + 8]
+            (n,) = struct.unpack("<Q", head)
+            rec = data[at + 12:at + 12 + n]
+            if struct.unpack("<I", data[at + 8:at + 12])[0] != \
+                    masked_crc32c(head) or struct.unpack(
+                        "<I", data[at + 12 + n:at + 16 + n])[0] != \
+                    masked_crc32c(rec):
+                fail(f"{name}: a record's CRC does not hold at byte {at}")
+            at += 16 + n
+            event = dict(_proto_fields(rec))
+            if 3 in event:
+                out["file_version"].append(event[3].decode())
+            for number, summary in _proto_fields(event.get(5, b"")):
+                value = dict(_proto_fields(summary))
+                tag = value[1].decode()
+                step = event.get(2, 0)
+                if 2 in value:
+                    out["scalars"].setdefault(tag, []).append(
+                        (step, struct.unpack("<f", value[2])[0]))
+                elif 4 in value:
+                    img = dict(_proto_fields(value[4]))
+                    out["images"].setdefault(tag, []).append(
+                        (step, img.get(1, 0), img.get(2, 0)))
+    return out
+
+
 def flagship_train_config(**kw):
     """The flagship training configuration (``bench.py:85-90``) with the
     fused trunk: width 512, fc1..fc8 + fc9, 4 seasonal classes, bf16,
@@ -1740,6 +2311,7 @@ def validation_path(device, steps=VAL_STEPS, **model_kw) -> dict:
             fail(f"the validation path launched K3 {k3} times; the chunking "
                  f"implies {want_k3}")
 
+        tr.writer.flush()          # the report after finalize included
         logged = read_metrics(cfg.logs_dir)
         per_step = {}
         for tag, vals in logged.items():
@@ -1756,6 +2328,34 @@ def validation_path(device, steps=VAL_STEPS, **model_kw) -> dict:
                 fail(f"save point {step}: Testing values missing or not "
                      f"finite: {bad} in {got}")
         report["testing"] = {s_: per_step[s_] for s_ in saves}
+
+        # the same run's TensorBoard records: every scalar of
+        # metrics.jsonl, and each report's render and height map of every
+        # held-out view (a report a save point, one more after finalize)
+        events = read_event_files(cfg.logs_dir)
+        n_scalars = sum(len(v) for v in events["scalars"].values())
+        n_images = sum(len(v) for v in events["images"].values())
+        n_views = len(tr.val_table.img_names)
+        want_images = len(report_s) * n_views * 2
+        want_scalars = sum(len(v) for v in logged.values())
+        report["tensorboard"] = {
+            "files": events["files"], "scalar_events": n_scalars,
+            "image_events": n_images, "images_implied": want_images,
+            "scalars_in_jsonl": want_scalars,
+            "image_steps": sorted({s_ for v in events["images"].values()
+                                   for s_, _, _ in v})}
+        log(f"  TensorBoard: {events['files']} event file(s), every CRC "
+            f"holds; {n_scalars} scalar events (metrics.jsonl {want_scalars}"
+            f"), {n_images} image events ({len(report_s)} reports x "
+            f"{n_views} views x 2 = {want_images}) at steps "
+            f"{report['tensorboard']['image_steps']}")
+        if events["file_version"] != ["brain.Event:2"] * events["files"] \
+                or events["files"] < 1 or n_images != want_images \
+                or n_scalars != want_scalars \
+                or not set(saves) <= set(report["tensorboard"]
+                                         ["image_steps"]):
+            fail(f"the TensorBoard records do not match the run: "
+                 f"{report['tensorboard']}")
         for s_ in saves:
             t = per_step[s_]
             log(f"  save point {s_}: Testing/Total {t['Total']:.4f}, "
@@ -3081,6 +3681,32 @@ def f32_only(args, model, cfg, device, card, nvcc_s, f32_ptxas, t_start):
     log(card)
 
 
+def k3_only(args, model, device, card, nvcc_s, ptxas, t_start):
+    """``--only k3``: K3 alone at the flagship render chunk (bf16 and f32,
+    both sines, timed), then, where the port has them, the wider and deeper
+    trunks; into ``--json``.  Runs on an unpacked copy of another commit
+    too (its flagship part needs nothing this tree added)."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    log("K3 at the flagship render chunk against trunk_apply_reference:")
+    trunk = check_trunk(model.to(device), device, ns=(FLAGSHIP_N,))
+    for name, ms in PARENT_K3_MS.items():
+        log(f"  {name}: {trunk[name][0]['ms']:.4f} ms (PERF.md records "
+            f"{ms} ms for the parent)")
+    wide = None
+    if hasattr(ft, "fold_layers"):
+        log("K3 at the wider and deeper trunks:")
+        wide = check_trunk_wide(device)
+    os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+    with open(args.json, "w") as f:
+        json.dump({"card": card, "torch": torch.__version__,
+                   "cuda": torch.version.cuda, "nvcc_s": nvcc_s,
+                   "ptxas": ptxas_entries(ptxas, "trunk_"), "trunk": trunk,
+                   "wide": wide,
+                   "seconds": time.perf_counter() - t_start}, f, indent=1)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+
+
 def main():
     import argparse
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3088,13 +3714,15 @@ def main():
                    help="where to write every measurement as JSON")
     p.add_argument("--degree-child", action="store_true",
                    help=argparse.SUPPRESS)     # see degree_children
-    p.add_argument("--only", choices=("f32",),
+    p.add_argument("--only", choices=("f32", "k3"),
                    help="f32: build K3 alone and run only its float32 "
                         "phases (the f32 kernel against its plain version "
                         "and timed, the cuBLAS layer GEMMs, the legacy "
-                        "float32 model directory served), e.g. to compare "
-                        "two trees of the port in one call; prints no "
-                        "contract lines")
+                        "float32 model directory served); k3: build K3 "
+                        "alone, time it at the flagship render chunk in "
+                        "both dtypes and sines and hold it at the wider and "
+                        "deeper trunks; either e.g. to compare two trees of "
+                        "the port in one call; prints no contract lines")
     args = p.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -3119,7 +3747,7 @@ def main():
     import importlib.util
     found = {m: importlib.util.find_spec(m) is not None
              for m in ("scipy", "cv2", "imageio", "tabulate", "matplotlib",
-                       "PIL")}
+                       "PIL", "tensorboard")}
     log("host packages (find_spec): " + ", ".join(
         f"{m} {'present' if v else 'absent'}" for m, v in found.items()))
     if not found["scipy"]:
@@ -3147,11 +3775,17 @@ def main():
     if args.only == "f32":
         f32_only(args, model, cfg, device, card, nvcc_s, f32_ptxas, t_start)
         return
+    if args.only == "k3":
+        k3_only(args, model, device, card, nvcc_s, ptxas[ft.KERNEL], t_start)
+        return
     log("K3 (trunk_infer) against trunk_apply_reference:")
     trunk = check_trunk(model.to(device), device)
     check_trunk_small_widths(device)
     log("K3's f32 layers as cuBLAS f32 GEMMs alone (a yardstick):")
     f32_gemms = f32_layer_gemms(model, device)
+    log("K3 at the wider and deeper trunks (the bf16 kernel's wide "
+        "instance, the f32 kernel at 1024, 11 and 17 layers):")
+    wide = wide_path(device, trunk, ptxas[ft.KERNEL])
 
     log("K1 (trunk_train_fwd) and K2 (trunk_train_bwd) against "
         "trunk_fwd_reference / trunk_bwd_reference:")
@@ -3181,6 +3815,14 @@ def main():
     log("main path: HTTP serving a legacy model directory (float32, sinf: "
         "K3's f32 kernel)")
     legacy = legacy_f32_path(model, cfg, device)
+
+    log("main path: a reference checkpoint converted by "
+        "tools/convert_reference_model and served (K3's f32 kernel)")
+    reference = reference_path(cfg, device)
+
+    log(f"main path: tools/make_movie on the render cell's model "
+        f"({MOVIE_FRAMES} frames of {MOVIE_SIZE} px)")
+    movie = movie_path(model, cfg, device)
     del model
     torch.cuda.empty_cache()
 
@@ -3215,6 +3857,7 @@ def main():
         "source": "season_nerf_torch/csrc/trunk_infer.cu",
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
         "launches": (serving["k3_launches"] + fast["k3_launches"]
+                     + movie["k3_launches"]
                      + hierarchical["k3_launches"] + hsluv["k3_launches"]
                      + validation["k3_launches"]
                      + evaluation["k3_launches"] + real_site["k3_launches"]
@@ -3234,13 +3877,28 @@ def main():
         "route": "cuda",
         "source": "season_nerf_torch/csrc/trunk_infer.cu",
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
-        "launches": legacy["k3_launches"],
+        "launches": (legacy["k3_launches"] + reference["k3_launches"]
+                     + reference["frame_16px"]["k3_launches"]),
         "max_abs_err": max(r["max_abs_err"]
                            for r in trunk["trunk_infer[float32,sinf]"]),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
+        "library_ms": None,
+    })
+    w640 = wide["trunks"][f"bf16-{WIDE_FRAME_UNITS}[bfloat16,fast_sin]"]
+    kernels.append({
+        "name": "trunk_infer[bfloat16,wide]",
+        "route": "cuda",
+        "source": "season_nerf_torch/csrc/trunk_infer.cu",
+        "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
+        "launches": wide["k3_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in w640),
+        "ms": w640[0]["ms"],
+        "plain_ms": w640[0]["plain_ms"],
+        "bound_ms": w640[0]["bound_ms"],
+        "bound_by": w640[0]["bound_by"],
         "library_ms": None,
     })
     tk = train_kernels["flagship,bf16,fast_sin"]
@@ -3271,7 +3929,8 @@ def main():
                    "ptxas": ptxas,
                    "f32_ptxas": f32_ptxas, "f32_gemms": f32_gemms,
                    "trunk": trunk, "serving": serving, "fast_render": fast,
-                   "legacy_f32": legacy,
+                   "legacy_f32": legacy, "wide": wide,
+                   "reference": reference, "movie": movie,
                    "train_kernels": train_kernels, "gemms": gemms,
                    "degrees": degrees, "training": training,
                    "hierarchical": hierarchical, "hsluv": hsluv,

@@ -54,6 +54,7 @@ import numpy as np
 from season_nerf_torch.config import (Config, add_config_flags, get_opts,
                                       lite_defaults)
 from season_nerf_torch.data import ingest, lidar, rays
+from season_nerf_torch.ops.fused_trunk import refuse_on_card
 from season_nerf_torch.priors import space_carving
 from season_nerf_torch.geometry.time_enc import year_frac_from_month_day
 from season_nerf_torch.render.loading import load_model_dir
@@ -207,7 +208,9 @@ def prepare_real(cfg: Config, device="cuda"):
 
 def _prepare(cfg: Config, device):
     """The site of ``cfg``: built-in synthetic for ``SYNTH*`` names, else a
-    DFC2019-format site -> the tuple of :func:`prepare_synthetic`."""
+    DFC2019-format site -> the tuple of :func:`prepare_synthetic`.  A
+    model K3 cannot take on the card is refused first."""
+    refuse_on_card(cfg, device)
     if cfg.site_name.upper().startswith("SYNTH"):
         return prepare_synthetic(cfg)
     return prepare_real(cfg, device=device)

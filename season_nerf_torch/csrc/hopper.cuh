@@ -1,12 +1,14 @@
 // Hopper primitives shared by the port's kernels: K3 (trunk_infer.cu) and
 // K1/K2's GEMM (trunk_train_common.cuh, gemm_wgmma).
 //
-// - mbarriers: init, arrive (local, or on another CTA of the cluster),
-//   expect_tx, and a wait that traps instead of hanging when it has polled
+// - mbarriers: init, arrive (local, or on another CTA of the cluster, also
+//   releasing at cluster scope), expect_tx, and a wait (also acquiring at
+//   cluster scope) that traps instead of hanging when it has polled
 //   for seconds (a wrong phase is then a launch error, not a hung card);
 // - TMA: a 2-D box into shared memory, to this CTA alone or multicast to
 //   several CTAs of a cluster, completing on an mbarrier;
-// - clusters: the CTA's rank, the cluster barrier;
+// - clusters: the CTA's rank, the cluster barrier, another CTA's shared
+//   memory (mapa, st.shared::cluster);
 // - wgmma: the 128-byte-swizzle shared-memory descriptor and
 //   m64n128k16 bf16 x bf16 -> f32, the one shape both kernels use;
 // - fences and barriers: the generic-to-async proxy fence that makes
@@ -62,6 +64,19 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
       : "memory");
 }
 
+// the same, releasing this thread's earlier writes (to shared memory of any
+// CTA of the cluster) to whoever acquires the phase this arrive completes
+__device__ __forceinline__ void mbar_arrive_cluster_release(uint32_t bar,
+                                                            uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::
+          "r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
 // until the phase of `bar` with parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   for (long long i = 0;; ++i) {
@@ -69,6 +84,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > kSpinLimit) __trap();
+  }
+}
+
+// mbar_wait, acquiring at cluster scope what the arrivals released
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  for (long long i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
         : "r"(bar), "r"(parity)
@@ -109,6 +142,21 @@ __device__ __forceinline__ uint32_t cluster_ctarank() {
   return r;
 }
 
+// the address of shared-memory address `addr` in CTA `cta` of the cluster
+// (distributed shared memory: st.shared::cluster writes there)
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(cta));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
 // every thread of every CTA of the cluster; orders shared-memory accesses
 // (mbarrier inits included) before it against those after it, cluster-wide
 __device__ __forceinline__ void cluster_sync() {
@@ -121,6 +169,12 @@ __device__ __forceinline__ void cluster_sync() {
 // st.shared before it becomes visible to the async proxy (wgmma, TMA)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the same for every state space: st.shared::cluster into any CTA of the
+// cluster included
+__device__ __forceinline__ void fence_proxy_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 // named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads

@@ -66,7 +66,15 @@
 //  - Shared memory: 73,728 (activations) + 147,456 (ring) + 1,024 (to
 //    align the swizzle atoms) = 222,208 B of the 232,448 an SM gives, so
 //    one CTA an SM.  Widths up to 512 after padding to 128 (one slot),
-//    up to kMaxLayers = 9 layers (the model's deepest trunk).
+//    up to kMaxLayers = 17 layers (fc_layers <= 16; the model builds 8 at
+//    most, its fc9 names the half-width layer).
+//  - Padded widths 640 .. 1024 take trunk_bf16_wide: the cluster's two
+//    CTAs share one 64-row tile and split each layer's columns, each CTA
+//    holding the whole [h | PE] and writing its half of every layer's sine
+//    into both through distributed shared memory (its note below).  wgmma's
+//    64-row M keeps the tile at 64 rows, and two accumulator sets a
+//    warpgroup (128 columns each, ~165 registers) are all a thread holds,
+//    so a CTA cannot take more than 512 columns of a layer.
 //  - No setmaxnreg: ptxas gives the kernel about 165 registers, no spills
 //    (PERF.md).  The shared-memory limit is set on every launch; a wait
 //    that polls too long traps.
@@ -114,8 +122,10 @@
 //    over act after z is stored there (f32_sinf_pass).  The last layer
 //    writes f32 x_enc.
 //  - Rows past the end of the input are computed on zeros and never
-//    stored.  Widths up to 768 after padding to 128 (32-row tiles above
-//    512), up to kMaxLayers layers.
+//    stored.  Widths up to 1024 after padding to 128 (32-row tiles above
+//    512), up to kMaxLayers layers.  Above 768 a ring slot holds kKsWide =
+//    4 rows of W'^T: at 1024 the tile (1,088 x 36 x 4 = 156,672 B) and four
+//    slots of 16 KB (65,536 B) fit in 222,208 B, with the same k-order sum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,7 +153,7 @@ constexpr int kSlots = 9;
 constexpr int kSmemBf16 = kActBytes + kSlots * kSlotBytes + 1024;
 constexpr int kThreadsBf16 = 288;
 constexpr int kConsumers = 256;
-constexpr int kMaxLayers = 9;                  // fc1 .. fc8 + fc9
+constexpr int kMaxLayers = 17;                 // fc1 .. fc16 + fc9
 // launch plan (int64, kPlanFields per layer, built by the host:
 // fused_trunk.FoldedTrunk.launch_plan)
 constexpr int kPlanFields = 8;
@@ -380,14 +390,205 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   cluster_sync();
 }
 
+// --- bf16 above a padded width of 512: the cluster shares one tile -----------
+constexpr int kMaxWidthWide = 1024;                    // widest padded layer
+constexpr int kPeSlotWide = kMaxWidthWide / 64;        // the PE chunk
+constexpr int kActBytesWide = (kPeSlotWide + 1) * kChunkBytes;
+constexpr int kSlotsWide = 5;
+constexpr int kSmemWide = kActBytesWide + kSlotsWide * kSlotBytes + 1024;
+
+// The slots of a layer of n output columns that CTA `rank` computes: the
+// layer's 128-column slots j = 2 i + rank, i < wide_slots(n, rank).
+__device__ __forceinline__ int wide_slots(int n, int rank) {
+  return (n / kSlotRows + 1 - rank) / 2;
+}
+
+// acc += the tile's K chunk at `a` . the ring's slot of the sequence's
+// element q, then frees the slot for this CTA's producer (one arrive per
+// warp of the warpgroup).
+__device__ __forceinline__ void mma_slot_wide(float (&acc)[64],
+                                              const Smem& sm, int q,
+                                              uint32_t a, int lane) {
+  const int s = q % kSlotsWide;
+  mbar_wait(sm.full0 + 8 * s, (q / kSlotsWide) & 1);
+  const uint32_t b = sm.ring + s * kSlotBytes;
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_bf16<0, 0>(acc, wgmma_desc(a + kk * 32, 16, 1024),
+                     wgmma_desc(b + kk * 32, 16, 1024));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+  if (lane == 0) mbar_arrive(sm.empty0 + 8 * s);
+}
+
+// The sine of acc (64 rows x 128 columns from c0) as bf16 into the
+// swizzled h of this CTA and, at the same offsets, of its peer (`peer`:
+// the peer's act, through mapa).
+template <bool FAST>
+__device__ __forceinline__ void epilogue_shared(const float (&acc)[64],
+                                                int c0, const Smem& sm,
+                                                uint32_t peer) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = c0 + 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          sine<FAST>(acc[4 * j + 2 * h]), sine<FAST>(acc[4 * j + 2 * h + 1]));
+      const uint32_t off = (col >> 6) * kChunkBytes + swz(r, col & 63);
+      *reinterpret_cast<__nv_bfloat162*>(sm.act_ptr + off) = v;
+      st_cluster_u32(peer + off, *reinterpret_cast<const uint32_t*>(&v));
+    }
+  }
+}
+
+// Padded widths 640 .. 1024.  The cluster's two CTAs share one 64-row tile
+// and split every layer's output columns by 128-wide slots: CTA r computes
+// the slots j = 2 i + r, i < wide_slots (at most 4, so each warpgroup keeps
+// the two accumulator sets of trunk_bf16).  Each CTA holds the tile's whole
+// [h | PE] (17 chunks, 139,264 B at 1024) and streams only its own slots of
+// W', a slot as two TMA boxes of the launch plan's 64 rows (no multicast),
+// through a ring of kSlotsWide = 5 slots of 16 KB: 139,264 + 81,920 + 1,024
+// = 222,208 B.  A layer's sine goes into both CTAs' h, so a layer is
+// written over its input only when every consumer warp of the cluster has
+// read it: each warp arrives on both CTAs' read barrier and waits on its
+// own; then it stores its columns here and, through distributed shared
+// memory, in the peer, fences the generic stores against wgmma's async
+// proxy, arrives on both CTAs' write barrier (release, cluster scope) and
+// waits on its own (acquire) before the next layer's products.  The last
+// layer writes its own columns of the f32 output.
+template <bool FAST>
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kThreadsBf16, 1)
+    trunk_bf16_wide(const __grid_constant__ Bf16Params p) {
+  extern __shared__ uint8_t smem[];
+  // full, empty, then the read and the write barrier
+  __shared__ __align__(8) uint64_t bars[2 * kSlotsWide + 2];
+  Smem sm;
+  const uint32_t raw = smem_u32(smem);
+  sm.act = (raw + 1023) & ~1023u;
+  sm.ring = sm.act + kActBytesWide;
+  sm.act_ptr = smem + (sm.act - raw);
+  sm.full0 = smem_u32(bars);
+  sm.empty0 = sm.full0 + 8 * kSlotsWide;
+  const uint32_t read_bar = sm.empty0 + 8 * kSlotsWide;
+  const uint32_t write_bar = read_bar + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = (int)cluster_ctarank();
+  const int row0 = blockIdx.x / kCluster * kRows;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlotsWide; ++s) {
+      mbar_init(sm.full0 + 8 * s, 1);
+      mbar_init(sm.empty0 + 8 * s, 4);          // the warpgroup's warps
+    }
+    mbar_init(read_bar, 8 * kCluster);          // every consumer warp
+    mbar_init(write_bar, 8 * kCluster);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the peer's barriers exist before any remote arrive
+  __syncwarp();
+  cluster_sync();
+
+  if (warp == 8) {
+    if (lane == 0) {
+      int q = 0;
+      for (int l = 0; l < p.n_layers; ++l) {
+        const int m = wide_slots(p.layers[l].n, rank);
+        for (int kc = 0; kc < p.layers[l].k_chunks; ++kc)
+          for (int i = 0; i < m; ++i, ++q) {
+            const int s = q % kSlotsWide;
+            mbar_wait(sm.empty0 + 8 * s, ((q / kSlotsWide) & 1) ^ 1);
+            const uint32_t full = sm.full0 + 8 * s;
+            const uint32_t dst = sm.ring + s * kSlotBytes;
+            const int n0 = (2 * i + rank) * kSlotRows;
+            mbar_expect_tx(full, kSlotBytes);
+            tma_load(dst, &p.maps[l], full, kc * 64, n0);
+            tma_load(dst + kBoxRows * 128, &p.maps[l], full, kc * 64,
+                     n0 + kBoxRows);
+          }
+      }
+    }
+  } else {
+    // the PE: f32 [rows, 64] -> bf16 in the PE chunk, zeros past the end
+    for (int i = threadIdx.x; i < kRows * 16; i += kConsumers) {
+      const int r = i >> 4, c = 4 * (i & 15);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + r < p.rows)
+        v = __ldg(reinterpret_cast<const float4*>(
+            p.pe + (size_t)(row0 + r) * 64 + c));
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 w;
+      w.x = *reinterpret_cast<uint32_t*>(&lo);
+      w.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(sm.act_ptr + kPeSlotWide * kChunkBytes +
+                                swz(r, c)) = w;
+    }
+    fence_proxy_async();
+    bar_sync(1, kConsumers);
+    const uint32_t peer = mapa(sm.act, rank ^ 1);
+    const int wg = warp >> 2;
+    int q = 0;
+    for (int l = 0; l < p.n_layers; ++l) {
+      const Layer L = p.layers[l];
+      const int m = wide_slots(L.n, rank);
+      const bool last = l == p.n_layers - 1;
+      // as in trunk_bf16: both sets start at b' unconditionally
+      float a0[64], a1[64];
+      init_acc(a0, L.bias, m ? (2 * (wg % m) + rank) * kSlotRows : 0);
+      init_acc(a1, L.bias, m ? (2 * ((wg + 2) % m) + rank) * kSlotRows : 0);
+      fence_acc(a0);
+      fence_acc(a1);
+      for (int kc = 0; kc < L.k_chunks; ++kc, q += m) {
+        const uint32_t a =
+            sm.act + (kc == L.pe_chunk ? kPeSlotWide : kc) * kChunkBytes;
+        if (wg < m) mma_slot_wide(a0, sm, q + wg, a, lane);
+        if (wg + 2 < m) mma_slot_wide(a1, sm, q + wg + 2, a, lane);
+      }
+      const int c0 = (2 * wg + rank) * kSlotRows;
+      const int c1 = (2 * (wg + 2) + rank) * kSlotRows;
+      if (last) {
+        if (wg < m) epilogue<FAST, true>(a0, p, c0, sm, row0);
+        if (wg + 2 < m) epilogue<FAST, true>(a1, p, c1, sm, row0);
+      } else {
+        // every consumer warp of the cluster has read this layer's input:
+        // it may be overwritten, here and in the peer
+        __syncwarp();
+        if (lane < kCluster) mbar_arrive_cluster_release(read_bar, lane);
+        mbar_wait_cluster(read_bar, l & 1);
+        if (wg < m) epilogue_shared<FAST>(a0, c0, sm, peer);
+        if (wg + 2 < m) epilogue_shared<FAST>(a1, c1, sm, peer);
+        // both CTAs' h is whole before the next layer's wgmma reads it
+        fence_proxy_async_all();
+        asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+        __syncwarp();
+        if (lane < kCluster) mbar_arrive_cluster_release(write_bar, lane);
+        mbar_wait_cluster(write_bar, l & 1);
+        fence_proxy_async();
+      }
+    }
+  }
+  // no CTA leaves while its peer may still arrive on its barriers
+  __syncwarp();
+  cluster_sync();
+}
+
 // --- f32: FFMA, a producer warp and a weight ring -----------------------------
 constexpr int kKs = 8;              // rows of W'^T [k, n] a ring slot holds
+constexpr int kKsWide = 4;          // the same above kMaxWidthF32Ks8
 constexpr int kSlotsF32 = 4;
 constexpr int kConsumersF32 = 256;  // warps 0-7; warp 8 is the producer
 constexpr int kThreadsF32 = kConsumersF32 + 32;
 constexpr int kPadRows = 4;         // act's row padding: conflict-free stores
-constexpr int kMaxWidthF32 = 768;   // widest padded layer
+constexpr int kMaxWidthF32 = 1024;  // widest padded layer
 constexpr int kWideRows = 512;      // above this padded width: 32-row tiles
+constexpr int kMaxWidthF32Ks8 = 768;   // above it: kKsWide rows a slot
 constexpr int kSmemMax = 232448 - 1024;   // dynamic; the rest: barriers
 // launch plan (int64, kF32Fields per layer, built by the host:
 // fused_trunk.FoldedTrunk.f32_plan)
@@ -524,7 +725,7 @@ __device__ __forceinline__ void f32_sinf_pass(float* act, int n, bool last,
 // rows kKs kc .. kKs kc + kKs - 1, all n columns).  Every consumer warp
 // waits for every slot and frees it, also a warp with no columns in a
 // layer narrower than its 8 warps cover.
-template <int ROWS, bool FAST>
+template <int ROWS, bool FAST, int KS>
 __global__ void __launch_bounds__(kThreadsF32, 1)
     trunk_f32(const __grid_constant__ F32Params p) {
   constexpr int LDA = ROWS + kPadRows;
@@ -550,13 +751,13 @@ __global__ void __launch_bounds__(kThreadsF32, 1)
       int q = 0;
       for (int l = 0; l < p.n_layers; ++l) {
         const F32Layer& L = p.layers[l];
-        const uint32_t bytes = kKs * L.n * 4;
-        for (int kc = 0; kc < L.k / kKs; ++kc, ++q) {
+        const uint32_t bytes = KS * L.n * 4;
+        for (int kc = 0; kc < L.k / KS; ++kc, ++q) {
           const int s = q % kSlotsF32;
           mbar_wait(empty0 + 8 * s, ((q / kSlotsF32) & 1) ^ 1);
           mbar_expect_tx(full0 + 8 * s, bytes);
           bulk_load(smem_u32(ring + s * p.slot_floats),
-                    L.w + (size_t)kc * kKs * L.n, bytes, full0 + 8 * s);
+                    L.w + (size_t)kc * KS * L.n, bytes, full0 + 8 * s);
         }
       }
     }
@@ -602,14 +803,14 @@ __global__ void __launch_bounds__(kThreadsF32, 1)
       }
     }
     const float* a = act + L.in_k * LDA + ra;
-    for (int kc = 0; kc < L.k / kKs; ++kc, ++q) {
+    for (int kc = 0; kc < L.k / KS; ++kc, ++q) {
       const int s = q % kSlotsF32;
       mbar_wait(full0 + 8 * s, (q / kSlotsF32) & 1);
       if (active) {
         const float* b = ring + s * p.slot_floats + cb;
 #pragma unroll
-        for (int kk = 0; kk < kKs; ++kk) {
-          const float* ak = a + (kc * kKs + kk) * LDA;
+        for (int kk = 0; kk < KS; ++kk) {
+          const float* ak = a + (kc * KS + kk) * LDA;
           const float* bk = b + kk * L.n;
           const float4 a0 = lds4(ak), a1 = lds4(ak + 16);
           const float4 b0 = lds4(bk), b1 = lds4(bk + 32), b2 = lds4(bk + 64),
@@ -672,10 +873,11 @@ bool valid_f32_plan(const long long* plan, int n_layers, int out_cols,
   return out_cols <= prev_n;
 }
 
-template <int ROWS>
-int launch_f32(const F32Params& p, int fast_sine, cudaStream_t stream) {
-  void (*kernel)(F32Params) = fast_sine ? trunk_f32<ROWS, true>
-                                        : trunk_f32<ROWS, false>;
+template <int ROWS, int KS>
+int launch_f32(F32Params p, int max_n, int fast_sine, cudaStream_t stream) {
+  void (*kernel)(F32Params) = fast_sine ? trunk_f32<ROWS, true, KS>
+                                        : trunk_f32<ROWS, false, KS>;
+  p.slot_floats = KS * max_n;
   const int act = (((p.width + 64) * (ROWS + kPadRows) + 31) & ~31) * 4;
   const int smem = act + kSlotsF32 * p.slot_floats * 4;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
@@ -689,6 +891,16 @@ int launch_f32(const F32Params& p, int fast_sine, cudaStream_t stream) {
 // The launch plan of a bf16 trunk is one the kernel serves: fc1 reads the
 // PE chunk alone, every later layer reads all of the previous layer's
 // output chunks and, the skip layer, the PE chunk after them.
+// Its widest layer selects the instance: trunk_bf16 up to kMaxWidth,
+// trunk_bf16_wide up to kMaxWidthWide.
+int plan_width(const long long* plan, int n_layers) {
+  long long w = 0;
+  for (int l = 0; l < n_layers; ++l)
+    w = w > plan[(size_t)l * kPlanFields + P_N]
+            ? w : plan[(size_t)l * kPlanFields + P_N];
+  return (int)w;
+}
+
 bool valid_plan(const long long* plan, int n_layers, int out_cols) {
   if (n_layers < 1 || n_layers > kMaxLayers || out_cols < 1) return false;
   long long prev_n = 0;
@@ -696,7 +908,7 @@ bool valid_plan(const long long* plan, int n_layers, int out_cols) {
     const long long* f = plan + (size_t)l * kPlanFields;
     const long long K = f[P_K], N = f[P_N], pe = f[P_PE_CHUNK];
     if (K < 64 || K % 64 || N < kSlotRows || N % kSlotRows ||
-        N > kMaxWidth || f[P_BOX_K] != 64 || f[P_BOX_N] != kBoxRows ||
+        N > kMaxWidthWide || f[P_BOX_K] != 64 || f[P_BOX_N] != kBoxRows ||
         f[P_STRIDE] != 2 * K || !f[P_W] || !f[P_B])
       return false;
     const long long h_chunks = K / 64 - (pe >= 0 ? 1 : 0);
@@ -740,10 +952,13 @@ int trunk_bf16_encode(const long long* plan, int n_layers, int out_cols,
 int trunk_bf16_launch(const long long* plan, int n_layers, const void* maps,
                       const float* pe, float* out, int rows, int out_cols,
                       int fast_sine, void* stream) {
-  void (*kernel)(Bf16Params) = fast_sine ? trunk_bf16<true>
-                                         : trunk_bf16<false>;
   if (rows < 1 || !valid_plan(plan, n_layers, out_cols))
     return (int)cudaErrorInvalidValue;
+  const bool wide = plan_width(plan, n_layers) > kMaxWidth;
+  void (*kernel)(Bf16Params) =
+      wide ? (fast_sine ? trunk_bf16_wide<true> : trunk_bf16_wide<false>)
+           : (fast_sine ? trunk_bf16<true> : trunk_bf16<false>);
+  const int smem = wide ? kSmemWide : kSmemBf16;
   Bf16Params p;
   memset(&p, 0, sizeof(p));
   memcpy(p.maps, maps, n_layers * sizeof(CUtensorMap));
@@ -759,13 +974,14 @@ int trunk_bf16_launch(const long long* plan, int n_layers, const void* maps,
   p.out = out;
   p.rows = rows;
   p.out_cols = out_cols;
+  // one tile a CTA (wide: a cluster), the grid in whole clusters
   const int tiles = (rows + kRows - 1) / kRows;
-  const dim3 grid((tiles + kCluster - 1) / kCluster * kCluster);
+  const dim3 grid(wide ? tiles * kCluster
+                       : (tiles + kCluster - 1) / kCluster * kCluster);
   const cudaError_t err = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBf16);
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreadsBf16, kSmemBf16, (cudaStream_t)stream>>>(p);
+  kernel<<<grid, kThreadsBf16, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -796,10 +1012,11 @@ int trunk_f32_launch(const long long* plan, int n_layers, const float* ring,
   p.rows = rows;
   p.out_cols = out_cols;
   p.width = width;
-  p.slot_floats = kKs * max_n;
-  return width <= kWideRows
-             ? launch_f32<64>(p, fast_sine, (cudaStream_t)stream)
-             : launch_f32<32>(p, fast_sine, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (width <= kWideRows) return launch_f32<64, kKs>(p, max_n, fast_sine, st);
+  if (width <= kMaxWidthF32Ks8)
+    return launch_f32<32, kKs>(p, max_n, fast_sine, st);
+  return launch_f32<32, kKsWide>(p, max_n, fast_sine, st);
 }
 
 }  // extern "C"

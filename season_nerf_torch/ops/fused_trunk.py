@@ -22,19 +22,23 @@ plain version, :func:`trunk_apply_reference`; for a CUDA tensor it launches
 launches.  The bf16 kernel (TMA + wgmma, clusters of two 64-row tiles)
 reads each layer's W' through a tensor map: :meth:`FoldedTrunk.launch_plan`
 says per layer what the map covers, and :meth:`FoldedTrunk.tensor_maps`
-encodes the maps once per folded trunk.  It takes padded widths up to
-``MAX_WIDTH`` and up to ``MAX_LAYERS`` layers.  The f32 kernel (FFMA,
-a producer warp and a ring of weight slots) streams the f32 copy of every
-W' that :func:`fold_trunk` lays out as W'^T, the layers one after the other
-(:attr:`FoldedTrunk.ring_weights`), as :meth:`FoldedTrunk.f32_plan` says;
-it takes padded widths up to ``MAX_WIDTH_F32`` (64-row tiles up to 512,
-32-row tiles above) and up to ``MAX_LAYERS`` layers.
+encodes the maps once per folded trunk (above a padded width of 512 the
+cluster's two CTAs share a tile and split its columns).  The f32 kernel
+(FFMA, a producer warp and a ring of weight slots) streams the f32 copy of
+every W' that :func:`fold_trunk` lays out as W'^T, the layers one after
+the other (:attr:`FoldedTrunk.ring_weights`), as
+:meth:`FoldedTrunk.f32_plan` says (64-row tiles up to a padded width of
+512, 32-row tiles above).  Both take padded widths up to ``MAX_WIDTH`` and up
+to ``MAX_LAYERS`` layers.  :func:`k3_refusal` says, from a
+model's config alone, whether K3 takes it; the entry points ask it before
+they build anything on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -52,9 +56,8 @@ MULTIPLE = 128                          # padding of every width
 KERNEL = "trunk_infer"
 CLUSTER = 2             # CTAs of the bf16 kernel's cluster (trunk_infer.cu)
 SLOT_ROWS = 128         # W' rows of a slot of its weight ring
-MAX_WIDTH = 512         # the bf16 kernel's widest padded layer
-MAX_LAYERS = 9          # the kernels' deepest trunk: fc1..fc8 + fc9
-MAX_WIDTH_F32 = 768     # the f32 kernel's widest padded layer
+MAX_WIDTH = 1024        # the kernels' widest padded layer
+MAX_LAYERS = 17         # the kernels' deepest trunk: fc1..fc16 + fc9
 
 
 def _pad_to(n: int) -> int:
@@ -158,11 +161,20 @@ def fold_trunk(gnerf, dtype: torch.dtype = torch.float32,
                device=None) -> FoldedTrunk:
     """Fold omega and the BN running statistics of ``gnerf``'s trunk into
     padded ``(W', b')`` per layer (float64 math, then ``dtype``)."""
-    device = device if device is not None else gnerf.fc1.linear.weight.device
-    width = gnerf.fc1.linear.out_features
+    return fold_layers(trunk_layers(gnerf), dtype, device)
+
+
+def fold_layers(layers, dtype: torch.dtype = torch.float32,
+                device=None) -> FoldedTrunk:
+    """:func:`fold_trunk` of a trunk given as [(SineLayer, input kind)]
+    (:func:`trunk_layers`): fc1 reads the PE, the last layer's width is
+    the output's."""
+    first = layers[0][0].linear.weight
+    device = device if device is not None else first.device
+    width = first.shape[0]
     wp = _pad_to(width)
     weights, biases, inputs = [], [], []
-    for layer, kind in trunk_layers(gnerf):
+    for layer, kind in layers:
         f64 = lambda t: t.detach().to("cpu", torch.float64).numpy()
         W = layer.omega_0 * f64(layer.linear.weight)          # [out, in]
         b = layer.omega_0 * f64(layer.linear.bias)
@@ -191,7 +203,7 @@ def fold_trunk(gnerf, dtype: torch.dtype = torch.float32,
     ring = (torch.cat([w.t().reshape(-1) for w in weights])
             if dtype == torch.float32 else None)
     return FoldedTrunk(weights, biases, inputs, wp,
-                       gnerf.fc9.linear.out_features, width, ring)
+                       layers[-1][0].linear.out_features, width, ring)
 
 
 def encode_points(x: torch.Tensor) -> torch.Tensor:
@@ -201,12 +213,17 @@ def encode_points(x: torch.Tensor) -> torch.Tensor:
 
 
 def trunk_apply_reference(pe: torch.Tensor, folded: FoldedTrunk,
-                          fast_sine: bool = False) -> torch.Tensor:
+                          fast_sine: bool = False,
+                          acc_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
     """The plain version of K3: [N, 64] f32 PE -> [N, out_features] f32.
     Each layer's input is cast to W's dtype, the product accumulates in
     float32 (bf16 x bf16 products are exact in f32), b' is added in f32.
     The padding's rows and columns of W' are zero, so only the unpadded
-    ones are computed."""
+    ones are computed.  ``acc_dtype=torch.float64`` accumulates each
+    layer's sum in float64 and rounds it once to float32: the same function
+    in another summation order, which says how far the order alone moves a
+    trunk's output."""
     sin = fast_sin if fast_sine else torch.sin
     width, wp = folded.width or folded.width_pad, folded.width_pad
     h = None
@@ -221,7 +238,8 @@ def trunk_apply_reference(pe: torch.Tensor, folded: FoldedTrunk,
         else:
             x = torch.cat([h, pe], 1)
             w = torch.cat([w[:n, :width], w[:n, wp:]], 1)
-        h = sin(x.to(w.dtype).float() @ w.float().t() + b[:n])
+        h = sin((x.to(w.dtype).to(acc_dtype) @ w.to(acc_dtype).t()
+                 + b[:n]).float())
     return h
 
 
@@ -242,14 +260,46 @@ def _launcher():
     return lib
 
 
+def _limit_refusal(bf16: bool, width_pad: int, layers: int,
+                   what: str) -> Optional[str]:
+    kernel = "bf16" if bf16 else "f32"
+    if width_pad > MAX_WIDTH:
+        return (f"the {kernel} trunk kernel (K3) takes padded widths up to "
+                f"{MAX_WIDTH} (fc_units <= {MAX_WIDTH}), got {width_pad}"
+                f"{what}")
+    if layers > MAX_LAYERS:
+        return (f"the {kernel} trunk kernel (K3) takes up to {MAX_LAYERS} "
+                f"layers (fc_layers <= {MAX_LAYERS - 1}), got {layers}"
+                f"{what}")
+    return None
+
+
+def k3_refusal(fc_units: int, fc_layers: int,
+               compute_dtype: Optional[str]) -> Optional[str]:
+    """Why K3 cannot run the trunk of a model of this shape, naming the
+    limit, or None.  ``compute_dtype`` as a Config holds it: "bfloat16"
+    takes the bf16 kernel, anything else (a legacy directory's None too)
+    the f32 one.  The plain version on the CPU takes every shape."""
+    return _limit_refusal(compute_dtype == "bfloat16", _pad_to(fc_units),
+                          fc_layers + 1,
+                          f" (fc_units {fc_units}, fc_layers {fc_layers})")
+
+
+def refuse_on_card(cfg, device):
+    """Raise ValueError where ``device`` is a card and K3 cannot take the
+    model ``cfg`` describes (:func:`k3_refusal`): the entry points call it
+    before they build a model, a table or a fold."""
+    if torch.device(device).type != "cuda":
+        return
+    why = k3_refusal(cfg.fc_units, cfg.fc_layers,
+                     getattr(cfg, "compute_dtype", None))
+    if why is not None:
+        raise ValueError(why)
+
+
 def _check_f32_layout(folded: FoldedTrunk, device):
     """Raise unless the f32 kernel can stream ``folded``: its ring copy
-    on ``device``, holding every W' as W'^T, up to MAX_WIDTH_F32 and
-    MAX_LAYERS."""
-    if folded.width_pad > MAX_WIDTH_F32 or len(folded.weights) > MAX_LAYERS:
-        raise ValueError(f"the f32 trunk kernel takes widths up to "
-                         f"{MAX_WIDTH_F32} and up to {MAX_LAYERS} layers, "
-                         f"got {folded.width_pad} and {len(folded.weights)}")
+    on ``device``, holding every W' as W'^T."""
     ring = folded.ring_weights
     if ring is None or ring.dtype != torch.float32 \
             or ring.device != device or not ring.is_contiguous() \
@@ -283,11 +333,9 @@ def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
             raise ValueError("folded trunk weights must be contiguous and on "
                              f"the PE's device {pe.device}")
     bf16 = folded.dtype == torch.bfloat16
-    if bf16 and (folded.width_pad > MAX_WIDTH
-                 or len(folded.weights) > MAX_LAYERS):
-        raise ValueError(f"the bf16 trunk kernel takes widths up to "
-                         f"{MAX_WIDTH} and up to {MAX_LAYERS} layers, got "
-                         f"{folded.width_pad} and {len(folded.weights)}")
+    why = _limit_refusal(bf16, folded.width_pad, len(folded.weights), "")
+    if why is not None:
+        raise ValueError(why)
     if not bf16:
         _check_f32_layout(folded, pe.device)
     n = pe.shape[0]
@@ -317,11 +365,13 @@ def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
             f"trunk_infer launch failed: "
             f"{lib.trunk_infer_error_string(err).decode()} (widths "
             f"{folded.width_pad} + PE {PE_PAD})")
-    trunk_apply.launches += 1
+    with _count_lock:                       # frames in flight on threads
+        trunk_apply.launches += 1
     return out
 
 
 trunk_apply.launches = 0
+_count_lock = threading.Lock()
 
 
 class FusedTrunk:

@@ -17,6 +17,7 @@ import torch
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.ingest import load_w2c_w2l
 from season_nerf_torch.models.tnerf import TNeRF, model_from_config
+from season_nerf_torch.ops.fused_trunk import refuse_on_card
 from season_nerf_torch.render.renderer import Renderer
 from season_nerf_torch.train.state import load_model_artifact
 
@@ -40,6 +41,7 @@ def load_model_dir(model_dir: str, n_samples: Optional[int] = None,
     ``fast_render=(n_coarse, n_fine)`` makes the Renderer depth-guided."""
     device = torch.device(device)
     cfg = Config.load_json(os.path.join(model_dir, "opts.json"))
+    refuse_on_card(cfg, device)         # before the weights or a fold
     sd, _ = load_model_artifact(os.path.join(model_dir, "Final_Model.nn"))
     model = model_from_config(cfg).load_weights(sd).to(device)
     model.G_NeRF_net.fused()            # fold the trunk once, on the device

@@ -59,7 +59,7 @@ from season_nerf_torch.config import Config
 from season_nerf_torch.data.dataset import DeviceRayDataset
 from season_nerf_torch.data.rays import RayTable, decode_batch
 from season_nerf_torch.models.tnerf import TNeRF, model_from_config
-from season_nerf_torch.ops import rendering, robust_loss
+from season_nerf_torch.ops import fused_trunk, rendering, robust_loss
 from season_nerf_torch.ops.metrics import psnr as psnr_metric
 from season_nerf_torch.ops.robust_loss import AdaptiveCfg
 from season_nerf_torch.train import phases as phase_lib
@@ -215,6 +215,9 @@ class Trainer:
                  val_draws: Optional[Callable[[int], Dict]] = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        # a model K3 cannot evaluate would train and then fail at its
+        # first save point: refused before anything is built
+        fused_trunk.refuse_on_card(cfg, self.device)
         self.writer = writer or MetricWriter(cfg.logs_dir)
         if cfg.logs_dir:
             heartbeat.set_path(os.path.join(cfg.logs_dir, "heartbeat"))

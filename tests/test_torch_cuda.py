@@ -9,7 +9,10 @@ training, and the regional evaluation (the shadow test's sun rays through
 K3, ``regional_eval``, the pairwise metrics) on the card against the CPU;
 the opt-in variants: K3 at the fast render's chunk, a fast frame and a
 hierarchical training step on the card against the CPU, ``pallas_trunk``
-refusing hierarchical sampling, and K3 built at ``FAST_SIN_DEGREE=7``.
+refusing hierarchical sampling, and K3 built at ``FAST_SIN_DEGREE=7``;
+K3 above the flagship's shapes (widths 640-1024, 11 and 17 layers), wide
+models' frames, a converted reference checkpoint's frame and a movie on
+the card against the CPU.
 
 Every test here needs a CUDA card and skips without one.  Run them on a
 machine with an H100, from the repository root:
@@ -31,9 +34,14 @@ from chip_smoke import (CARVE_TOL, CPU_CARD_ATOL, CPU_CARD_RTOL, FAST_N,
                         F32_RENDER_TOL, FAST_RENDER, GEMM_REL_TOL, HIER_ATOL,
                         HIER_GRAD_RTOL, HIER_RTOL, HIER_SMALL, K1_REL_TOL,
                         K2_REL_TOL, RENDER_TOL, SWEEP_TOL, TOL, VAL_CHUNK,
-                        carve_recovers_surface, cpu_vs_card,
+                        WIDE_TRUNKS, carve_recovers_surface, card_vs_cpu_dir,
+                        converted_model_dir, cpu_vs_card,
                         flagship_train_config, gemm_case, gemm_rel_err,
-                        make_model, train_params, write_legacy_model_dir)
+                        make_model, order_moves, order_tolerance,
+                        train_params,
+                        wide_trunk_layers,
+                        write_legacy_model_dir, write_model_dir,
+                        write_reference_checkpoint)
 from season_nerf_torch.config import Config
 from season_nerf_torch.data.ingest import save_world_artifact
 from season_nerf_torch.ops import fused_train as ftr
@@ -128,28 +136,124 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         ft.trunk_apply(pe, ft.fold_trunk(_model(32, 2).G_NeRF_net,
                                          dtype=torch.float16, device=cuda))
-    # the bf16 kernel: padded widths up to 512, up to 9 layers
-    bf = ft.fold_trunk(_model(32, 2).G_NeRF_net, dtype=torch.bfloat16,
-                       device=cuda)
-    deep = ft.FoldedTrunk(bf.weights[:2] * 5, bf.biases[:2] * 5,
-                          bf.inputs[:2] * 5, bf.width_pad, bf.out_features)
-    wide = ft.fold_trunk(_model(576, 2).G_NeRF_net, dtype=torch.bfloat16,
-                         device=cuda)
-    for bad in (deep, wide):
-        with pytest.raises(ValueError, match="bf16 trunk kernel"):
-            ft.trunk_apply(pe, bad)
-    # the f32 kernel: padded widths up to 768, and the fold's ring copy of
-    # the weights on the PE's device
-    wide = ft.fold_trunk(_model(800, 2).G_NeRF_net, device=cuda)
+    # both kernels: padded widths up to 1024, up to 17 layers
+    for dtype, kernel in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        deep = ft.fold_layers(wide_trunk_layers(32, 17), dtype, cuda)
+        wide = ft.fold_trunk(_model(1100, 2).G_NeRF_net, dtype=dtype,
+                             device=cuda)
+        assert (len(deep.weights), wide.width_pad) == (18, 1152)
+        for bad in (deep, wide):
+            with pytest.raises(ValueError, match=f"{kernel} trunk kernel"):
+                ft.trunk_apply(pe, bad)
+    # the f32 kernel: the fold's ring copy of the weights on the PE's device
     no_ring = dataclasses.replace(folded, ring_weights=None)
     cpu_ring = dataclasses.replace(folded,
                                    ring_weights=folded.ring_weights.cpu())
-    for bad in (wide, no_ring, cpu_ring):
+    for bad in (no_ring, cpu_ring):
         with pytest.raises(ValueError, match="f32 trunk kernel"):
             ft.trunk_apply(pe, bad)
     launches = ft.trunk_apply.launches
     assert ft.trunk_apply(pe[:0], folded).shape == (0, 16)
     assert ft.trunk_apply.launches == launches       # nothing to launch
+
+
+# K3 above the flagship's shapes (chip_smoke.WIDE_TRUNKS): the bf16
+# kernel's wide instance at padded widths 640, 768 and 1024, the f32 kernel
+# at 1024 (four rows of W'^T a ring slot), and 11 and 17 layers
+# (deep_trunk_layers: no model builds them) in both kernels, at a ragged
+# odd tile count and a ragged larger one.  Tolerances:
+# chip_smoke.order_tolerance (TOL scaled by how much more the summation
+# order alone moves the trunk than the flagship's, never below TOL).
+WIDE_CASES = [(label, w, d, dt) for label, w, d, dts in WIDE_TRUNKS
+              for dt in dts]
+
+
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("label,width,fc_layers,dtype", WIDE_CASES, ids=[
+    f"{label}-{'bf16' if dt == torch.bfloat16 else 'f32'}"
+    for label, _, _, dt in WIDE_CASES])
+def test_kernel_matches_plain_version_wide_and_deep(cuda, label, width,
+                                                    fc_layers, dtype,
+                                                    fast_sine):
+    """And a launch of one row gives that point's row of a larger launch,
+    byte for byte (a row's sums do not depend on the others)."""
+    folded = ft.fold_layers(wide_trunk_layers(width, fc_layers), dtype,
+                            cuda)
+    flagship = ft.fold_trunk(_model(512, 8).G_NeRF_net, dtype=dtype,
+                             device=cuda)
+    assert len(folded.weights) == fc_layers + 1
+    for n in (777, 20_000 + 37):
+        pe = _pe(n, cuda)
+        flag = order_moves(pe, flagship, fast_sine, ft.trunk_apply_reference(
+            pe, flagship, fast_sine))
+        launches = ft.trunk_apply.launches
+        got = ft.trunk_apply(pe, folded, fast_sine)
+        want = ft.trunk_apply_reference(pe, folded, fast_sine)
+        torch.cuda.synchronize()
+        assert ft.trunk_apply.launches == launches + 1
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        err = (got - want).abs()
+        tol_max, tol_mean = order_tolerance(
+            order_moves(pe, folded, fast_sine, want), flag, dtype)
+        assert float(err.max()) <= tol_max, (n, float(err.max()))
+        assert float(err.mean()) <= tol_mean, (n, float(err.mean()))
+    assert torch.equal(ft.trunk_apply(pe[:1].contiguous(), folded,
+                                      fast_sine), got[:1])
+
+
+@pytest.mark.parametrize("units,legacy,tol", [
+    (640, False, RENDER_TOL), (768, False, RENDER_TOL),
+    (1024, True, F32_RENDER_TOL)], ids=["bf16-640", "bf16-768", "f32-1024"])
+def test_render_16px_wide_model_matches_the_cpu(cuda, tmp_path, units,
+                                                legacy, tol):
+    """Models wider than the flagship: bf16 through the wide instance, a
+    float32 (legacy) one through the f32 kernel at 1024; a 16 px frame on
+    the card against the CPU (bf16: RENDER_TOL; f32: F32_RENDER_TOL), one
+    launch."""
+    cfg = Config(fc_units=units)
+    (write_legacy_model_dir if legacy else write_model_dir)(
+        str(tmp_path), make_model(cfg), cfg, (0.0, 30.0))
+    rec = card_vs_cpu_dir(str(tmp_path), tol, cuda)
+    assert rec["k3_launches"] == 1
+    assert rec["dtype"] == str(torch.float32 if legacy else torch.bfloat16)
+
+
+def test_converted_reference_dir_on_the_card_matches_the_cpu(cuda,
+                                                             tmp_path):
+    """A reference-format checkpoint (seeded, the render cell's width)
+    converted by tools/convert_reference_model into a legacy directory:
+    float32 with the exact sine, a 16 px frame on the card against the CPU
+    within F32_RENDER_TOL."""
+    cfg = Config()
+    ckpt = str(tmp_path / "reference.nn")
+    write_reference_checkpoint(ckpt, cfg)
+    d = tmp_path / "converted"
+    d.mkdir()
+    converted_model_dir(str(d), ckpt, cfg, (0.0, 30.0))
+    rec = card_vs_cpu_dir(str(d), F32_RENDER_TOL, cuda)
+    assert rec["dtype"] == str(torch.float32) and rec["k3_launches"] == 1
+
+
+def test_movie_on_the_card(cuda, tmp_path):
+    """tools/make_movie on the card: frames x chunks launches; the frames
+    within chip_smoke.MOVIE_LEVELS of the CPU's and byte-equal with
+    pipeline=2."""
+    from chip_smoke import MOVIE_LEVELS
+    from season_nerf_torch.render.movie import render_movie
+    from season_nerf_torch.tools import make_movie
+    cfg = Config(fc_units=64, fc_layers=4, n_samples=16, chunk=100)
+    write_model_dir(str(tmp_path), make_model(cfg), cfg, (0.0, 30.0))
+    launches = ft.trunk_apply.launches
+    make_movie.main(["--Model_Location", str(tmp_path), "--frames", "3",
+                     "--size", "12", "--out", str(tmp_path / "m.gif")])
+    assert ft.trunk_apply.launches - launches == 3 * -(-144 // cfg.chunk)
+    script = make_movie.default_script()
+    card = load_model_dir(str(tmp_path), device=cuda).renderer
+    cpu = load_model_dir(str(tmp_path), device="cpu").renderer
+    one = render_movie(card, script, 3, 12, pipeline=1)
+    assert np.array_equal(one, render_movie(card, script, 3, 12, pipeline=2))
+    want = render_movie(cpu, script, 3, 12, pipeline=1)
+    assert np.abs(one.astype(int) - want.astype(int)).max() <= MOVIE_LEVELS
 
 
 def test_render_on_the_card_matches_the_cpu(cuda, tmp_path):

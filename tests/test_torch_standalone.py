@@ -1,13 +1,15 @@
 """The port stands alone: no module of ``season_nerf_torch``, and not
 ``chip_smoke.py``, imports JAX, the JAX package, or a package outside the
-port's import rule (msgpack, PIL, matplotlib, cv2, imageio, tabulate;
-scipy is inside it: the port calls it where the JAX package does).  Checked
-statically over every source file, then on the CPU in a fresh interpreter
-in which importing any of them raises: by rendering (the uniform and the
-depth-guided fast render), by training two steps (and two with
-hierarchical sampling), by evaluating a model into ``Analysis.pickle`` and ``Output/``, and
-by ``cli.eval_region`` (``run_test`` with ``eval_only``, ``regional_eval``
-into ``Detailed_Output/``, ``multi_region_merge`` into ``Full_Summary/``)."""
+port's import rule (msgpack, PIL, matplotlib, cv2, imageio, tabulate,
+tensorboard; scipy is inside it: the port calls it where the JAX package
+does).  Checked statically over every source file, then on the CPU in a
+fresh interpreter in which importing any of them raises: by rendering (the
+uniform and the depth-guided fast render), by training two steps (and two
+with hierarchical sampling), by evaluating a model into ``Analysis.pickle``
+and ``Output/``, by ``cli.eval_region`` (``run_test`` with ``eval_only``,
+``regional_eval`` into ``Detailed_Output/``, ``multi_region_merge`` into
+``Full_Summary/``), and by the tools: a reference checkpoint converted, a
+movie made from it, and TensorBoard records written."""
 
 import ast
 import os
@@ -23,7 +25,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "matplotlib",
-          "cv2", "imageio", "tabulate", "season_nerf_tpu")
+          "cv2", "imageio", "tabulate", "tensorboard", "tensorflow",
+          "season_nerf_tpu")
 SOURCES = sorted((ROOT / "season_nerf_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -204,6 +207,41 @@ REGIONAL_SCRIPT = BLOCK + textwrap.dedent("""
 """)
 
 
+TOOLS_SCRIPT = BLOCK + textwrap.dedent("""
+    from season_nerf_torch.config import Config
+    from season_nerf_torch.geometry.solar import solar_el_az_utc
+    from season_nerf_torch.models.tnerf import TNeRF
+    from season_nerf_torch.tools import convert_reference_model, make_movie
+    from season_nerf_torch.utils.logging import MetricWriter
+
+    d = tempfile.mkdtemp()
+    torch.manual_seed(0)
+    ref = TNeRF(layer_width=32, n_classes=2)
+    torch.save(ref, os.path.join(d, "module.pt"))
+    convert_reference_model.main(
+        ["--torch_model", os.path.join(d, "module.pt"), "--fc_units", "32",
+         "--n_classes", "2", "--out", os.path.join(d, "Final_Model.nn")])
+    cfg = Config(fc_units=32, number_low_frequency_cases=2, n_samples=8,
+                 chunk=64)
+    cfg.save_json(os.path.join(d, "opts.json"))
+    path = make_movie.main(["--Model_Location", d, "--frames", "3",
+                            "--size", "8", "--out",
+                            os.path.join(d, "movie.mp4"), "--device", "cpu"])
+    assert path.endswith("movie.gif") and os.path.getsize(path) > 0
+    w = MetricWriter(os.path.join(d, "logs"))
+    w.scalar("Testing/Mean_PSNR", 20.5, 3)
+    w.image("Testing/render_0", np.full((4, 4, 3), 0.5), 3)
+    w.close()
+    assert any(f.startswith("events.out.tfevents.")
+               for f in os.listdir(os.path.join(d, "logs")))
+    el, az = solar_el_az_utc(39.0, -77.0, 2020, 6, 21, 17, 0)
+    assert 0 < el < 90 and 0 <= az < 360
+    loaded = sorted(k for k in sys.modules if k.split(".")[0] in BANNED)
+    assert not loaded, loaded
+    print("TOOLS")
+""")
+
+
 def _run_blocked(script, word):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run(
@@ -227,3 +265,8 @@ def test_port_evaluates_with_jax_and_the_jax_package_blocked():
 
 def test_port_evaluates_regions_with_jax_and_the_jax_package_blocked():
     _run_blocked(REGIONAL_SCRIPT, "REGIONAL")
+
+
+def test_port_tools_run_with_jax_and_imaging_packages_blocked():
+    """~10 s on one worker."""
+    _run_blocked(TOOLS_SCRIPT, "TOOLS")

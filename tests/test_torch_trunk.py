@@ -173,7 +173,7 @@ def test_f32_plan_streams_every_layer(width):
     assert plan is folded.f32_plan()                     # built once
     assert plan.dtype == torch.int64 and plan.device.type == "cpu"
     wp = -(-width // 128) * 128
-    assert folded.width_pad == wp <= ft.MAX_WIDTH_F32
+    assert folded.width_pad == wp <= ft.MAX_WIDTH
     out_pad = -(-(width // 2) // 128) * 128
     want_k = [64] + [wp] * 3 + [wp + 64] + [wp] * 4
     want_n = [wp] * 8 + [out_pad]
