@@ -66,7 +66,15 @@ Phases, each fatal on failure:
    render cell's model (8 frames of 128 px, the default orbit: seconds a
    frame, K3 launches against frames x chunks, the GIF decoded back), a
    3-frame 16 px movie on the card against the CPU and ``pipeline=2``
-   against ``pipeline=1`` byte for byte;
+   against ``pipeline=1`` byte for byte; then ``tools/export_render`` on
+   the render cell's model, exact and with ``--fast_render 32 32``, and on
+   its legacy float32 directory (no K3 launch while exporting), each
+   program loaded with ``torch.export.load`` in a fresh process that
+   imports ``season_nerf_torch`` and nothing of its tools, called on a
+   flagship chunk (5,120 rays x 96 samples) and held against the live
+   ``Renderer._full_chunk`` within 2e-5, K3 launched once a call exact and
+   twice fast, the program's chunk time beside the live chunk's (CUDA
+   events, in turns) and its size;
 5. the training main path: the flagship training config with
    ``pallas_trunk`` through ``Trainer`` on the synthetic site of
    ``bench.py`` in phase 1 (DSM prior on), one warm step and 20 timed
@@ -101,7 +109,15 @@ Phases, each fatal on failure:
    of every held-out view per report); print
    the seconds spent in validation and in training (at this size a
    functional check, not the validation layer's metric: phase 7 gives
-   that);
+   that); then the run tools: ``quality_report``,
+   ``select_best_geometry`` (its recomputed ``Prior_Height_Error`` of each
+   save point against the value the run logged), ``time_to_quality`` and
+   ``fast_render_ab`` on that run directory (functional: a 40-step model
+   says nothing of quality), ``bench_serving_concurrent`` on the render
+   cell's model at 1, 4 and 16 clients of 128 px (median, max, frames/s;
+   K3's launches as the frames imply) and ``run_regions`` on one
+   synthetic site at 4 flagship steps (``Full_Summary/``), each tool's
+   launches counted from 0;
 7. the real-site path: fabricate a DFC-format site from the seed (10
    GeoTIFFs of 2048 x 2048 px at 0.3 m with RPCs in tag 50844 and
    ``.ikono`` files, IMDs, a lidar DSM at 0.5 m with its UTM sidecar),
@@ -131,9 +147,10 @@ Phases, each fatal on failure:
    share, K3's launches against the chunking, finite scores and every
    file;
 8. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
-   summed over the main paths, K3's f32 kernel with the legacy and the
-   converted directories' launches, and K3's wide bf16 instance with the
-   640-wide frame's), then, as the last line,
+   summed over the main paths, the exported programs' and the tools'
+   included, K3's f32 kernel with the legacy and the converted
+   directories' and the float32 program's launches, and K3's wide bf16
+   instance with the 640-wide frame's), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only f32`` builds K3 alone and runs only its float32 phases (the f32
@@ -506,9 +523,9 @@ WIDE_NS = (FLAGSHIP_N, RAGGED_N)
 # K3 at the flagship render chunk before the wider and deeper shapes, as
 # PERF.md's kernel table records it (NVIDIA H100 80GB HBM3, 700.00 W); a
 # comparison that counts runs the parent's tree in the same call
-PARENT_K3_MS = {"trunk_infer[bfloat16,fast_sin]": 5.349,
-                "trunk_infer[float32,fast_sin]": 45.83,
-                "trunk_infer[float32,sinf]": 52.50}
+PARENT_K3_MS = {"trunk_infer[bfloat16,fast_sin]": 5.370,
+                "trunk_infer[float32,fast_sin]": 45.81,
+                "trunk_infer[float32,sinf]": 52.49}
 
 
 # Deeper than the flagship, a trunk's output moves with the summation order
@@ -1647,6 +1664,317 @@ def movie_path(model, cfg, device) -> dict:
     return report
 
 
+# --- the render export: tools/export_render through the K3 operator ---------
+# Each program exported on the card by the tool's main (the render cell's
+# model, exact and with --fast_render 32 32, and its legacy float32
+# directory, exact), then loaded in a fresh process (export_child) that
+# imports season_nerf_torch and nothing of its tools, called on a flagship
+# chunk (cfg.chunk rays x 96 samples: 491,520 trunk points; the tool's
+# --check rays) and held against the live Renderer._full_chunk at the
+# tool's 2e-5.
+EXPORT_CASES = (("bf16-exact", "bf16", None, 1),
+                ("bf16-fast", "bf16", FAST_RENDER, 2),
+                ("f32-exact", "legacy", None, 1))
+EXPORT_TOL = 2e-5
+EXPORT_REPS = 10
+
+
+def export_path(model, cfg, device) -> dict:
+    """Export, load in a fresh process, call, compare, time (see above):
+    K3's launches 0 while exporting, then 1 a call of an exact program and
+    2 of a fast one; each program's chunk time beside the live chunk's in
+    the same process (CUDA events, live / program / program / live), and
+    its size."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.tools import export_render
+    report = {"chunk": cfg.chunk, "points": cfg.chunk * cfg.n_samples}
+    with tempfile.TemporaryDirectory() as d:
+        dirs = {"bf16": os.path.join(d, "bf16"),
+                "legacy": os.path.join(d, "legacy")}
+        for kind, path in dirs.items():
+            os.makedirs(path)
+            (write_model_dir if kind == "bf16" else write_legacy_model_dir)(
+                path, model, cfg, (0.0, 30.0))
+        cases = []
+        for name, kind, fast, per_call in EXPORT_CASES:
+            out = os.path.join(d, f"{name}.pt2")
+            argv = [dirs[kind], "-o", out, "--device", str(device)]
+            if fast:
+                argv += ["--fast_render", *map(str, fast)]
+            ft.trunk_apply.launches = 0
+            t0 = time.perf_counter()
+            export_render.main(argv)
+            torch.cuda.synchronize()
+            rec = {"export_s": time.perf_counter() - t0,
+                   "mb": os.path.getsize(out) / 1e6,
+                   "export_launches": ft.trunk_apply.launches}
+            with open(out + ".json") as f:
+                manifest = json.load(f)
+            if rec["export_launches"] != 0 or manifest["chunk"] != cfg.chunk \
+                    or torch.device(manifest["device"]).type != device.type \
+                    or manifest["fast_render"] != (list(fast) if fast
+                                                   else None):
+                fail(f"export {name}: {rec}, manifest {manifest}")
+            report[name] = rec
+            cases.append({"name": name, "program": out,
+                          "device": manifest["device"],
+                          "model_dir": dirs[kind],
+                          "fast_render": list(fast) if fast else None,
+                          "per_call": per_call})
+        spec = os.path.join(d, "cases.json")
+        with open(spec, "w") as f:
+            json.dump(cases, f)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--export-child",
+             spec], capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  [loading process] {line}")
+    if proc.returncode != 0 or not lines:
+        fail(f"the export's loading process failed (rc {proc.returncode}): "
+             f"{proc.stderr[-3000:]}")
+    child = json.loads(lines[-1])
+    report["k3_launches"] = {"bfloat16": 0, "float32": 0}
+    for name, _, _, per_call in EXPORT_CASES:
+        rec = {**report[name], **child["cases"][name]}
+        report[name] = rec
+        report["k3_launches"][rec["dtype"]] += rec["launches"]
+        log(f"  {name}: exported in {rec['export_s']:.2f} s, "
+            f"{rec['mb']:.2f} MB; loaded in a fresh process: max abs "
+            f"difference from the live chunk {rec['max_abs_err']:.3e} (tol "
+            f"{EXPORT_TOL}), K3 {rec['launches_per_call']} launch(es) a "
+            f"call; chunk {rec['program_ms']:.3f} ms loaded against "
+            f"{rec['live_ms']:.3f} ms live ({rec['points']} trunk points)")
+    report["child_modules"] = child["modules"]
+    report["launch_states"] = child["launch_states"]
+    return report
+
+
+def export_child(spec: str):
+    """``--export-child``: load each program of ``spec`` with
+    ``torch.export.load`` (``season_nerf_torch`` imported, nothing of its
+    tools), call it on the flagship chunk, hold it against the live
+    ``Renderer._full_chunk`` of its model directory, count K3's launches a
+    call and time both; prints one JSON line."""
+    import season_nerf_torch                 # registers the operator
+    from season_nerf_torch.ops import fused_trunk as ft
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(spec) as f:
+        cases = json.load(f)
+    programs = {c["name"]: torch.export.load(c["program"]).module()
+                for c in cases}
+    from season_nerf_torch.render.loading import load_model_dir
+    out = {"cases": {}}
+    for c in cases:
+        program = programs[c["name"]]
+        device = torch.device(c["device"])  # the program's own
+        lm = load_model_dir(c["model_dir"], device=device,
+                            fast_render=c["fast_render"])
+        rng = np.random.default_rng(0)
+        n = lm.cfg.chunk
+        tops = np.concatenate([rng.uniform(-1, 1, (n, 2)),
+                               np.ones((n, 1))], 1)
+        bots = np.concatenate([tops[:, :2], -np.ones((n, 1))], 1)
+        sun = np.broadcast_to([0.3, 0.2, 0.93], (n, 3))
+        t4 = np.broadcast_to([1.0, 0.0, 1.0, 0.0], (n, 4))
+        rays = [torch.tensor(a, dtype=torch.float32, device=device)
+                for a in (tops, bots, sun, t4)]
+        live = lambda: lm.renderer._full_chunk(*rays)
+        call = lambda: program(*rays)
+        ft.trunk_apply.launches = 0
+        with torch.no_grad():
+            want = live()
+            torch.cuda.synchronize()
+            before = ft.trunk_apply.launches
+            got = call()
+            torch.cuda.synchronize()
+            launches = ft.trunk_apply.launches - before
+            err = max(float((got[k] - want[k]).abs().max()) for k in want)
+            finite = all(bool(torch.isfinite(got[k]).all()) for k in got)
+            ms = [cuda_ms(f, EXPORT_REPS) for f in (live, call, call, live)]
+        torch.cuda.synchronize()
+        if sorted(got) != sorted(want) or not finite or err > EXPORT_TOL \
+                or launches != c["per_call"]:
+            fail(f"the loaded program {c['name']}: keys {sorted(got)}, "
+                 f"finite {finite}, max abs difference {err:.3e}, K3 "
+                 f"launches a call {launches} (want {c['per_call']})")
+        out["cases"][c["name"]] = {
+            "max_abs_err": err, "launches_per_call": launches,
+            "launches": ft.trunk_apply.launches,    # live and loaded
+            "dtype": str(lm.model.G_NeRF_net.dtype or torch.float32)[6:],
+            "points": n * (sum(c["fast_render"]) if c["fast_render"]
+                           else lm.cfg.n_samples),      # both passes
+            "live_ms": (ms[0] + ms[3]) / 2, "program_ms": (ms[1] + ms[2]) / 2,
+            "ms_in_turn": ms}
+        del lm
+    out["modules"] = sorted(m for m in sys.modules
+                            if m.startswith("season_nerf_torch"))
+    out["launch_states"] = len(ft._launch_states)
+    if any(m.startswith("season_nerf_torch.tools") for m in out["modules"]):
+        fail("the loading process imported the port's tools")
+    print(json.dumps(out), flush=True)
+
+
+# --- the run tools on the card ------------------------------------------------
+# On the validation path's run directory (a 40-step flagship model: the
+# quality numbers are functional, not a model's quality): quality_report,
+# select_best_geometry (its recomputed Prior_Height_Error against the one
+# the run logged at each save point), time_to_quality and fast_render_ab;
+# bench_serving_concurrent on the render cell's model at 1, 4 and 16
+# clients; run_regions on one synthetic site at a few flagship steps.
+TOOLS_TTQ_SIZE = 64
+TOOLS_AB_SIZE = 256
+TOOLS_AB_VIEWS = 3
+TOOLS_CLIENTS = (1, 4, 16)
+TOOLS_BENCH_SIZE = 128
+TOOLS_REQUESTS = 4              # a client's requests, one after the other
+TOOLS_REGION_STEPS = 4
+TOOLS_PRIOR_RTOL = 1e-4
+
+
+def _tool(fn, argv, report, key):
+    """One tool's ``main(argv)`` with the kernels' counts set to 0 just
+    before it and read just after -> its result; seconds, launches and
+    stdout into ``report[key]``."""
+    import contextlib
+    from season_nerf_torch.ops import fused_train as ftr, fused_trunk as ft
+    out = io.StringIO()
+    ft.trunk_apply.launches = 0
+    ftr.trunk_fwd.launches = ftr.trunk_bwd.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = fn(argv)
+    torch.cuda.synchronize()
+    report[key] = {"s": time.perf_counter() - t0,
+                   "k3_launches": ft.trunk_apply.launches,
+                   "k1_launches": ftr.trunk_fwd.launches,
+                   "k2_launches": ftr.trunk_bwd.launches,
+                   "stdout": out.getvalue()[-4000:]}
+    return res
+
+
+def tools_path(cfg, device, val_dir, val_testing) -> dict:
+    """The run tools on the card (see above); ``val_testing`` is the
+    validation path's logged ``Testing`` values by save point."""
+    from season_nerf_torch.tools import (bench_serving_concurrent,
+                                         fast_render_ab, quality_report,
+                                         run_regions, select_best_geometry,
+                                         time_to_quality)
+    report = {}
+    md = _tool(quality_report.main, [val_dir], report, "quality_report")
+    log(f"  quality_report: {len(md.splitlines())} lines, "
+        f"{report['quality_report']['s']:.2f} s")
+    if "# Quality report" not in md or "camera-rays/s" not in md:
+        fail(f"quality_report on the validation run: {md[:500]}")
+
+    rows = _tool(select_best_geometry.main, [val_dir, "--device",
+                                             str(device)],
+                 report, "select_best_geometry")
+    rec = report["select_best_geometry"]
+    rec["rows"] = rows
+    worst = 0.0
+    for r in rows:
+        logged = val_testing[r["step"]]["Prior_Height_Error"]
+        worst = max(worst, abs(r["prior_mae"] - logged) / abs(logged))
+    rec["prior_rel_diff_vs_logged"] = worst
+    picked = min(rows, key=lambda r: r["prior_mae"])["step"]
+    rec["selected_step"] = picked
+    log(f"  select_best_geometry: {len(rows)} save points in "
+        f"{rec['s']:.2f} s, K3 {rec['k3_launches']} launches; selects step "
+        f"{picked}; its Prior_Height_Error against the run's logged values: "
+        f"max relative difference {worst:.2e} (tol {TOOLS_PRIOR_RTOL})")
+    if sorted(r["step"] for r in rows) != sorted(val_testing) \
+            or worst > TOOLS_PRIOR_RTOL \
+            or not all(np.isfinite([r["prior_mae"], r["gt_mae"], r["psnr"]])
+                       .all() for r in rows):
+        fail(f"select_best_geometry on the validation run: {rows}")
+
+    with tempfile.TemporaryDirectory() as d:
+        ttq = _tool(time_to_quality.main,
+                    [val_dir, "-o", os.path.join(d, "ttq.json"), "--size",
+                     str(TOOLS_TTQ_SIZE), "--device", str(device)],
+                    report, "time_to_quality")
+        report["time_to_quality"]["curve"] = ttq["curve"]
+        report["time_to_quality"]["bands"] = ttq["bands"]
+        ab = _tool(fast_render_ab.main,
+                   ["--Model_Location", val_dir, "--size",
+                    str(TOOLS_AB_SIZE), "--views", str(TOOLS_AB_VIEWS),
+                    "--output", os.path.join(d, "ab.json"), "--device",
+                    str(device)], report, "fast_render_ab")
+        report["fast_render_ab"]["result"] = ab
+    last = ttq["curve"][-1]
+    log(f"  time_to_quality at {TOOLS_TTQ_SIZE} px: {len(ttq['curve'])} "
+        f"save points in {report['time_to_quality']['s']:.2f} s, K3 "
+        f"{report['time_to_quality']['k3_launches']} launches; the last: "
+        f"aligned PSNR {last['aligned_psnr']}, DSM MAE {last['dsm_mae_m']} "
+        f"m (a {VAL_STEPS}-step model: functional, not a quality number)")
+    log(f"  fast_render_ab at {TOOLS_AB_SIZE} px, {TOOLS_AB_VIEWS} views: "
+        f"PSNR fast vs exact {ab['psnr_fast_vs_exact']}, SSIM "
+        f"{ab['ssim_fast_vs_exact']}, DSM MAE {ab['dsm_mae_m_fast_vs_exact']}"
+        f" m, speed-up {ab['speedup']} ({ab['exact_rays_per_sec']} / "
+        f"{ab['fast_rays_per_sec']} rays/s); K3 "
+        f"{report['fast_render_ab']['k3_launches']} launches (the same "
+        f"{VAL_STEPS}-step model: functional)")
+    if [r["step"] for r in ttq["curve"]] != sorted(val_testing) or not all(
+            np.isfinite(r["aligned_psnr"]) and np.isfinite(r["dsm_mae_m"])
+            for r in ttq["curve"]):
+        fail(f"time_to_quality on the validation run: {ttq['curve']}")
+    if not (np.isfinite(ab["psnr_fast_vs_exact"]).all()
+            and ab["speedup"] > 0):
+        fail(f"fast_render_ab on the validation run: {ab}")
+
+    with tempfile.TemporaryDirectory() as d:
+        write_model_dir(d, make_model(cfg), cfg, (0.0, 30.0))
+        bench = _tool(bench_serving_concurrent.main,
+                      [d, "--size", str(TOOLS_BENCH_SIZE), "--clients",
+                       *map(str, TOOLS_CLIENTS), "--requests",
+                       str(TOOLS_REQUESTS), "--device", str(device)],
+                      report, "bench_serving_concurrent")
+    report["bench_serving_concurrent"]["levels"] = bench["levels"]
+    frames = 1 + sum(n * TOOLS_REQUESTS for n in TOOLS_CLIENTS)  # + warm
+    want = frames * -(-TOOLS_BENCH_SIZE ** 2 // cfg.chunk)
+    report["bench_serving_concurrent"]["k3_implied"] = want
+    for row in bench["levels"]:
+        log(f"  bench_serving_concurrent, {row['clients']} client(s) x "
+            f"{TOOLS_REQUESTS} requests of {TOOLS_BENCH_SIZE} px: median "
+            f"{row['p50_s']} s, "
+            f"max {row['max_s']} s, {row['frames_per_s']} frames/s")
+    if any(r["errors"] for r in bench["levels"]) \
+            or report["bench_serving_concurrent"]["k3_launches"] != want:
+        fail(f"bench_serving_concurrent: {bench['levels']}, K3 "
+             f"{report['bench_serving_concurrent']['k3_launches']} launches "
+             f"(implied {want})")
+
+    with tempfile.TemporaryDirectory() as io_dir:
+        flags = flagship_train_config()
+        sets = [f"{k}={getattr(flags, k)}" for k in (
+            "batch_size", "n_samples", "fc_units", "pallas_trunk",
+            "compute_dtype", "fast_sine", "jump_start", "seed")]
+        out = _tool(run_regions.main,
+                    ["--IO_Location", io_dir, "--sites", "SYNTH_REGION",
+                     "--max_train_steps", str(TOOLS_REGION_STEPS),
+                     "--device", str(device), "--set", *sets,
+                     "synth_views=6", "synth_img_size=48", "synth_grid=64",
+                     "testing_size=1", "n_saves=2"],
+                    report, "run_regions")
+        merged = sorted(os.listdir(out))
+    report["run_regions"]["merged"] = merged
+    log(f"  run_regions, one synthetic site, {TOOLS_REGION_STEPS} steps: "
+        f"{report['run_regions']['s']:.1f} s, K3 "
+        f"{report['run_regions']['k3_launches']} launches; Full_Summary/: "
+        f"{merged}")
+    rec = report["run_regions"]
+    if merged != sorted(MERGED_FILES) or rec["k3_launches"] == 0 \
+            or rec["k1_launches"] != 2 * TOOLS_REGION_STEPS \
+            or rec["k2_launches"] != TOOLS_REGION_STEPS:
+        fail(f"run_regions: {merged}, launches K1 {rec['k1_launches']}, K2 "
+             f"{rec['k2_launches']}, K3 {rec['k3_launches']}")
+    tools = list(report.values())
+    for k in ("k1_launches", "k2_launches", "k3_launches"):
+        report[k] = sum(r[k] for r in tools)
+    return report
+
+
 def _proto_fields(data: bytes) -> list:
     """(field number, value) of a protobuf message: varints as ints, 64-
     and 32-bit fields as bytes, length-delimited ones as bytes."""
@@ -2242,11 +2570,12 @@ def render_on(dev, cfg, tr, ckpt):
     return rend, height, seen, p
 
 
-def validation_path(device, steps=VAL_STEPS, **model_kw) -> dict:
+def validation_path(device, steps=VAL_STEPS, io_dir=None,
+                    **model_kw) -> dict:
     """The validation path through ``cli.run_train`` (see the module
-    docstring); ``model_kw`` shrinks the flagship config for a rehearsal.
-    The launch counts are set to 0 just before ``run_train`` and read just
-    after it."""
+    docstring) in ``io_dir`` (None: a temporary directory); ``model_kw``
+    shrinks the flagship config for a rehearsal.  The launch counts are set
+    to 0 just before ``run_train`` and read just after it."""
     from season_nerf_torch import cli
     from season_nerf_torch.config import get_opts
     from season_nerf_torch.ops import fused_train as ftr, fused_trunk as ft
@@ -2254,9 +2583,9 @@ def validation_path(device, steps=VAL_STEPS, **model_kw) -> dict:
     from season_nerf_torch.train.engine import Trainer
     report = {"steps": steps, "n_saves": VAL_SAVES}
     rec = {}
-    with tempfile.TemporaryDirectory() as io_dir:
+    with tempfile.TemporaryDirectory() as tmp:
         cfg = flagship_train_config(
-            site_name="SYNTH_VAL", exp_name="val", IO_Location=io_dir,
+            site_name="SYNTH_VAL", exp_name="val", IO_Location=io_dir or tmp,
             synth_views=6, synth_img_size=48, synth_grid=64, testing_size=1,
             max_train_steps=steps, n_saves=VAL_SAVES,
             final_model_selection="best_geometry", **model_kw)
@@ -2328,6 +2657,7 @@ def validation_path(device, steps=VAL_STEPS, **model_kw) -> dict:
                 fail(f"save point {step}: Testing values missing or not "
                      f"finite: {bad} in {got}")
         report["testing"] = {s_: per_step[s_] for s_ in saves}
+        report["logs_dir"] = cfg.logs_dir
 
         # the same run's TensorBoard records: every scalar of
         # metrics.jsonl, and each report's render and height map of every
@@ -3714,6 +4044,8 @@ def main():
                    help="where to write every measurement as JSON")
     p.add_argument("--degree-child", action="store_true",
                    help=argparse.SUPPRESS)     # see degree_children
+    p.add_argument("--export-child", default=None,
+                   help=argparse.SUPPRESS)     # see export_path
     p.add_argument("--only", choices=("f32", "k3"),
                    help="f32: build K3 alone and run only its float32 "
                         "phases (the f32 kernel against its plain version "
@@ -3730,6 +4062,9 @@ def main():
     if args.degree_child:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(degree_check(torch.device("cuda"))), flush=True)
+        return
+    if args.export_child:
+        export_child(args.export_child)
         return
     from season_nerf_torch.config import Config
     from season_nerf_torch.ops import cuda_build, fused_trunk as ft
@@ -3823,6 +4158,11 @@ def main():
     log(f"main path: tools/make_movie on the render cell's model "
         f"({MOVIE_FRAMES} frames of {MOVIE_SIZE} px)")
     movie = movie_path(model, cfg, device)
+
+    log("main path: tools/export_render on the render cell's model (exact, "
+        f"fast {FAST_RENDER} and its legacy float32 directory), each "
+        "program loaded in a fresh process and called on a flagship chunk")
+    export = export_path(model, cfg, device)
     del model
     torch.cuda.empty_cache()
 
@@ -3838,7 +4178,14 @@ def main():
 
     log(f"main path: validation at the save points, cli.run_train on the "
         f"synthetic site ({VAL_STEPS} steps, {VAL_SAVES} save points)")
-    validation = validation_path(device)
+    with tempfile.TemporaryDirectory() as val_io:
+        validation = validation_path(device, io_dir=val_io)
+        log("main path: the run tools (quality_report, "
+            "select_best_geometry, time_to_quality and fast_render_ab on "
+            "the validation run, bench_serving_concurrent on the render "
+            "cell's model, run_regions on one synthetic site)")
+        tools = tools_path(cfg, device, validation["logs_dir"],
+                           validation["testing"])
 
     log(f"main path: the evaluation, cli.run_test on the synthetic site "
         f"({EVAL_STEPS} steps, {EVAL_SAVES} save points, best_geometry) and "
@@ -3858,6 +4205,8 @@ def main():
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
         "launches": (serving["k3_launches"] + fast["k3_launches"]
                      + movie["k3_launches"]
+                     + export["k3_launches"]["bfloat16"]
+                     + tools["k3_launches"]
                      + hierarchical["k3_launches"] + hsluv["k3_launches"]
                      + validation["k3_launches"]
                      + evaluation["k3_launches"] + real_site["k3_launches"]
@@ -3878,7 +4227,8 @@ def main():
         "source": "season_nerf_torch/csrc/trunk_infer.cu",
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
         "launches": (legacy["k3_launches"] + reference["k3_launches"]
-                     + reference["frame_16px"]["k3_launches"]),
+                     + reference["frame_16px"]["k3_launches"]
+                     + export["k3_launches"]["float32"]),
         "max_abs_err": max(r["max_abs_err"]
                            for r in trunk["trunk_infer[float32,sinf]"]),
         "ms": f32["ms"],
@@ -3905,9 +4255,11 @@ def main():
     for key, name, line, launches in (
             ("k1", ftr.FWD_KERNEL, 238, training["k1_launches"]
              + hsluv["k1_launches"] + validation["k1_launches"]
+             + tools["k1_launches"]
              + evaluation["k1_launches"] + real_site["k1_launches"]),
             ("k2", ftr.BWD_KERNEL, 273, training["k2_launches"]
              + hsluv["k2_launches"] + validation["k2_launches"]
+             + tools["k2_launches"]
              + evaluation["k2_launches"] + real_site["k2_launches"])):
         kernels.append({
             "name": name,
@@ -3931,6 +4283,7 @@ def main():
                    "trunk": trunk, "serving": serving, "fast_render": fast,
                    "legacy_f32": legacy, "wide": wide,
                    "reference": reference, "movie": movie,
+                   "export": export, "tools": tools,
                    "train_kernels": train_kernels, "gemms": gemms,
                    "degrees": degrees, "training": training,
                    "hierarchical": hierarchical, "hsluv": hsluv,

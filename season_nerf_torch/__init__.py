@@ -9,3 +9,8 @@ package in both directions.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
+
+# registers the operator ``season_nerf::trunk_apply`` (K3), which a render
+# program saved by ``tools/export_render.py`` calls: loading one needs this
+# package imported
+from season_nerf_torch.ops import fused_trunk as _fused_trunk  # noqa: E402,F401

@@ -58,6 +58,7 @@ from season_nerf_torch.ops.fused_trunk import refuse_on_card
 from season_nerf_torch.priors import space_carving
 from season_nerf_torch.geometry.time_enc import year_frac_from_month_day
 from season_nerf_torch.render.loading import load_model_dir
+from season_nerf_torch.train.engine import mesh_refusal
 from season_nerf_torch.render.renderer import images_from_components
 from season_nerf_torch.render.serving import png_bytes
 
@@ -250,6 +251,7 @@ def run_train(cfg: Config, train_steps: Optional[int] = None,
     finalize and write the validation report -> the Trainer.  ``cfg`` is
     what :func:`get_opts` returns: its directories resolved, a resumed
     run's recorded settings adopted and opts.json written."""
+    mesh_refusal(cfg, device)           # before the site is prepared
     return _train(cfg, _prepare(cfg, device), train_steps, device)
 
 
@@ -277,6 +279,8 @@ def run_test(cfg: Config, eval_only: bool = False,
     from season_nerf_torch.models.tnerf import model_from_config
     from season_nerf_torch.render.renderer import Renderer
     from season_nerf_torch.train.state import load_model_artifact
+    if not eval_only:
+        mesh_refusal(cfg, device)       # before the site is prepared
     prep = _prepare(cfg, device)
     cams, _, _, test_idx, prior, gt_dsm, h_range, wc, S = prep
     if eval_only:

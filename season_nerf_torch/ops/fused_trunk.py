@@ -16,9 +16,12 @@ kernel's weight ring, two of its 64-wide K chunks) and the 63-wide
 positional encoding to 64; padded outputs are sin(0) = 0 and padded inputs
 meet zero weights.
 
-:func:`trunk_apply` is the kernel's wrapper.  For a CPU tensor it runs the
-plain version, :func:`trunk_apply_reference`; for a CUDA tensor it launches
-``csrc/trunk_infer.cu`` or raises.  ``trunk_apply.launches`` counts the
+:func:`trunk_apply` is the kernel's wrapper.  It calls the operator
+``season_nerf::trunk_apply`` (:func:`trunk_op`, a ``torch.library``
+custom op, so that ``torch.export`` records the call and an exported
+render program reaches the same kernel): for a CPU tensor the plain
+version, :func:`trunk_apply_reference`; for a CUDA tensor a launch of
+``csrc/trunk_infer.cu`` or an error.  ``trunk_apply.launches`` counts the
 launches.  The bf16 kernel (TMA + wgmma, clusters of two 64-row tiles)
 reads each layer's W' through a tensor map: :meth:`FoldedTrunk.launch_plan`
 says per layer what the map covers, and :meth:`FoldedTrunk.tensor_maps`
@@ -39,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -309,69 +313,152 @@ def _check_f32_layout(folded: FoldedTrunk, device):
                          "by fold_trunk) on the PE's device")
 
 
-def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
-                fast_sine: bool = False) -> torch.Tensor:
-    """[N, 64] float32 PE -> [N, out_features] float32 x_enc.
+def _kinds(skip: int, n_layers: int) -> List[str]:
+    """The input kinds of an ``n_layers`` trunk whose layer ``skip`` (-1:
+    none) reads the PE again: fc1 the PE, every other layer h."""
+    return ["pe" if i == 0 else "h+pe" if i == skip else "h"
+            for i in range(n_layers)]
 
-    CPU tensor: the plain version.  CUDA tensor: the hand-written kernel
-    (``csrc/trunk_infer.cu``), launched on the current stream, or an error.
-    """
-    if pe.device.type == "cpu":
-        return trunk_apply_reference(pe, folded, fast_sine)
-    if pe.device.type != "cuda":
-        raise ValueError(f"trunk_apply takes a cpu or cuda tensor, got "
-                         f"{pe.device}")
+
+def _folded_of(weights, biases, ring, skip, width, width_pad,
+               out_features) -> FoldedTrunk:
+    return FoldedTrunk(list(weights), list(biases),
+                       _kinds(skip, len(weights)), width_pad, out_features,
+                       width, ring)
+
+
+# The operator K3 is reached through on every path: the renderer's
+# FusedTrunk and an exported program (tools/export_render.py) call the
+# same function.  Its arguments are tensors and scalars only, so that
+# torch.export can record a call: the padded PE, the folded W' and b' of
+# every layer, the f32 kernel's ring copy (None for bf16), the skip layer's
+# index (-1: none), the unpadded and padded widths, the output width and
+# the sine.  The CPU implementation is the plain version; the CUDA one
+# launches K3 or raises; the fake one gives the output's shape alone.
+@torch.library.custom_op("season_nerf::trunk_apply", mutates_args=())
+def trunk_op(pe: torch.Tensor, weights: List[torch.Tensor],
+             biases: List[torch.Tensor], ring: Optional[torch.Tensor],
+             skip: int, width: int, width_pad: int, out_features: int,
+             fast_sine: bool) -> torch.Tensor:
+    return trunk_apply_reference(
+        pe, _folded_of(weights, biases, ring, skip, width, width_pad,
+                       out_features), fast_sine)
+
+
+@trunk_op.register_fake
+def _trunk_op_fake(pe, weights, biases, ring, skip, width, width_pad,
+                   out_features, fast_sine):
+    return pe.new_empty((pe.shape[0], out_features), dtype=torch.float32)
+
+
+# launch state by the weights' addresses and shapes -> (weak references to
+# those tensors, the kernel's plan and tensor maps or f32 plan): built once
+# per set of weights, whether they come from a FusedTrunk or an exported
+# program's constants, and dropped once the weights are gone (an address
+# freed and reused by other weights misses: the references differ)
+_launch_states: dict = {}
+
+
+def _launch_state(weights, biases, ring, skip, width_pad, out_features,
+                  bf16: bool):
+    tensors = [*weights, *biases] + ([ring] if ring is not None else [])
+    key = (bf16, skip, width_pad, out_features,
+           tuple((t.data_ptr(), tuple(t.shape)) for t in tensors))
+    with _lock:
+        hit = _launch_states.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+        return hit[1]
+    folded = _folded_of(weights, biases, ring, skip, None, width_pad,
+                        out_features)
+    state = ((folded.launch_plan(), folded.tensor_maps()) if bf16
+             else (folded.f32_plan(),))
+    with _lock:
+        for k in [k for k, (refs, _) in _launch_states.items()
+                  if any(r() is None for r in refs)]:
+            del _launch_states[k]
+        _launch_states[key] = ([weakref.ref(t) for t in tensors], state)
+    return state
+
+
+@trunk_op.register_kernel("cuda")
+def _trunk_op_cuda(pe, weights, biases, ring, skip, width, width_pad,
+                   out_features, fast_sine):
     if pe.dtype != torch.float32 or pe.dim() != 2 \
             or pe.shape[1] != PE_PAD or not pe.is_contiguous():
         raise ValueError(f"trunk_apply takes a contiguous [N, {PE_PAD}] "
                          f"float32 PE, got {tuple(pe.shape)} {pe.dtype}")
-    if folded.dtype not in (torch.float32, torch.bfloat16):
+    dtype = weights[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"trunk kernel takes float32 or bfloat16 weights, "
-                         f"got {folded.dtype}")
-    for t in folded.weights + folded.biases:
+                         f"got {dtype}")
+    for t in list(weights) + list(biases):
         if t.device != pe.device or not t.is_contiguous():
             raise ValueError("folded trunk weights must be contiguous and on "
                              f"the PE's device {pe.device}")
-    bf16 = folded.dtype == torch.bfloat16
-    why = _limit_refusal(bf16, folded.width_pad, len(folded.weights), "")
+    bf16 = dtype == torch.bfloat16
+    why = _limit_refusal(bf16, width_pad, len(weights), "")
     if why is not None:
         raise ValueError(why)
     if not bf16:
-        _check_f32_layout(folded, pe.device)
+        _check_f32_layout(_folded_of(weights, biases, ring, skip, width,
+                                     width_pad, out_features), pe.device)
     n = pe.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"trunk kernel takes fewer than 2^31 rows, got {n}")
-    out = torch.empty((n, folded.out_features), dtype=torch.float32,
+    out = torch.empty((n, out_features), dtype=torch.float32,
                       device=pe.device)
     if n == 0:
         return out
+    state = _launch_state(weights, biases, ring, skip, width_pad,
+                          out_features, bf16)
     lib = _launcher()
     with torch.cuda.device(pe.device):      # launch on the tensors' card
         stream = torch.cuda.current_stream(pe.device).cuda_stream
         if bf16:
+            plan, maps = state
             err = lib.trunk_bf16_launch(
-                folded.launch_plan().data_ptr(), len(folded.weights),
-                folded.tensor_maps().data_ptr(), pe.data_ptr(),
-                out.data_ptr(), n, folded.out_features, int(fast_sine),
-                stream)
+                plan.data_ptr(), len(weights), maps.data_ptr(),
+                pe.data_ptr(), out.data_ptr(), n, out_features,
+                int(fast_sine), stream)
         else:
             err = lib.trunk_f32_launch(
-                folded.f32_plan().data_ptr(), len(folded.weights),
-                folded.ring_weights.data_ptr(), pe.data_ptr(),
-                out.data_ptr(), n, folded.out_features, folded.width_pad,
+                state[0].data_ptr(), len(weights), ring.data_ptr(),
+                pe.data_ptr(), out.data_ptr(), n, out_features, width_pad,
                 int(fast_sine), stream)
     if err != 0:
         raise RuntimeError(
             f"trunk_infer launch failed: "
             f"{lib.trunk_infer_error_string(err).decode()} (widths "
-            f"{folded.width_pad} + PE {PE_PAD})")
-    with _count_lock:                       # frames in flight on threads
+            f"{width_pad} + PE {PE_PAD})")
+    with _lock:                             # frames in flight on threads
         trunk_apply.launches += 1
     return out
 
 
+def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
+                fast_sine: bool = False) -> torch.Tensor:
+    """[N, 64] float32 PE -> [N, out_features] float32 x_enc, through the
+    operator ``season_nerf::trunk_apply`` (:func:`trunk_op`).
+
+    CPU tensor: the plain version.  CUDA tensor: the hand-written kernel
+    (``csrc/trunk_infer.cu``), launched on the current stream, or an error.
+    ``trunk_apply.launches`` counts the kernel's launches.
+    """
+    if pe.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"trunk_apply takes a cpu or cuda tensor, got "
+                         f"{pe.device}")
+    n = len(folded.inputs)
+    skip = folded.inputs.index("h+pe") if "h+pe" in folded.inputs else -1
+    if folded.inputs != _kinds(skip, n):
+        raise ValueError(f"trunk_apply takes fc1 on the PE and at most one "
+                         f"skip layer, got inputs {folded.inputs}")
+    return trunk_op(pe, folded.weights, folded.biases, folded.ring_weights,
+                    skip, folded.width or folded.width_pad,
+                    folded.width_pad, folded.out_features, fast_sine)
+
+
 trunk_apply.launches = 0
-_count_lock = threading.Lock()
+_lock = threading.Lock()
 
 
 class FusedTrunk:

@@ -19,6 +19,7 @@ from season_nerf_torch.data.ingest import load_w2c_w2l
 from season_nerf_torch.models.tnerf import TNeRF, model_from_config
 from season_nerf_torch.ops.fused_trunk import refuse_on_card
 from season_nerf_torch.render.renderer import Renderer
+from season_nerf_torch.train.engine import mesh_refusal
 from season_nerf_torch.train.state import load_model_artifact
 
 
@@ -38,10 +39,13 @@ def load_model_dir(model_dir: str, n_samples: Optional[int] = None,
                    device="cuda") -> LoadedModel:
     """Load ``model_dir`` onto ``device`` (``cuda`` unless the caller asks
     for ``cpu``).  ``n_samples``/``chunk`` override the recorded values;
-    ``fast_render=(n_coarse, n_fine)`` makes the Renderer depth-guided."""
+    ``fast_render=(n_coarse, n_fine)`` makes the Renderer depth-guided.
+    An opts.json that records a ``mesh_shape`` above 1 warns and renders
+    on ``device`` (:func:`mesh_refusal`)."""
     device = torch.device(device)
     cfg = Config.load_json(os.path.join(model_dir, "opts.json"))
     refuse_on_card(cfg, device)         # before the weights or a fold
+    mesh_refusal(cfg, device, strict=False)
     sd, _ = load_model_artifact(os.path.join(model_dir, "Final_Model.nn"))
     model = model_from_config(cfg).load_weights(sd).to(device)
     model.G_NeRF_net.fused()            # fold the trunk once, on the device

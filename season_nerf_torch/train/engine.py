@@ -69,6 +69,45 @@ from season_nerf_torch.utils import heartbeat
 from season_nerf_torch.utils.logging import MetricWriter
 
 
+def mesh_refusal(cfg: Config, device, strict: bool = True) -> None:
+    """The JAX package's mesh decisions (``_auto_mesh``,
+    ``season_nerf_tpu/train/engine.py``) for one process on one device,
+    where the port has no mesh yet (``parallel/mesh.py`` is not ported).
+
+    ``mesh_shape`` None or 1: nothing to do, the run takes ``device``.  An
+    explicit ``mesh_shape`` above 1 is never ignored.  With ``strict`` (the
+    trainer) it raises: with the JAX package's message where it exceeds
+    the visible devices, else because data-parallel training is not
+    ported.  Without (``strict=False``: the render side, where a model
+    directory's opts.json may record the slice it trained on) it warns, as
+    the JAX package's render side does, and the model renders on
+    ``device`` alone: every ray is independent, so the image is the same.
+    Visible devices: ``torch.cuda.device_count()`` on a card, 1 on the
+    CPU."""
+    if cfg.mesh_shape is None or int(cfg.mesh_shape) <= 1:
+        return
+    want = int(cfg.mesh_shape)
+    n_dev = (torch.cuda.device_count()
+             if torch.device(device).type == "cuda" else 1)
+    if want > n_dev:
+        msg = (f"mesh_shape={cfg.mesh_shape} but only {n_dev} device(s) are "
+               f"visible; lower mesh_shape or run on a larger slice")
+        if strict:
+            raise ValueError(msg)
+        warnings.warn(msg + f" — clamping to {n_dev}"
+                      + (", rendering on one device (the render mesh is "
+                         "not ported)" if n_dev > 1 else ""), stacklevel=2)
+        return
+    if strict:
+        raise ValueError(
+            f"mesh_shape={want}: data-parallel training over {want} "
+            f"devices is not ported to season_nerf_torch yet (the mesh of "
+            f"season_nerf_tpu/parallel/mesh.py); leave mesh_shape unset or "
+            f"set it to 1")
+    warnings.warn(f"mesh_shape={want}: the render mesh is not ported; "
+                  f"rendering on one device", stacklevel=2)
+
+
 def _color_cfg(init_alpha=2.0, init_scale=0.03):
     return AdaptiveCfg(n_channels=3, alpha_lo=0.001, alpha_hi=2.99,
                        alpha_init=init_alpha, scale_lo=0.01,
@@ -218,6 +257,7 @@ class Trainer:
         # a model K3 cannot evaluate would train and then fail at its
         # first save point: refused before anything is built
         fused_trunk.refuse_on_card(cfg, self.device)
+        mesh_refusal(cfg, self.device)      # never one device silently
         self.writer = writer or MetricWriter(cfg.logs_dir)
         if cfg.logs_dir:
             heartbeat.set_path(os.path.join(cfg.logs_dir, "heartbeat"))

@@ -17,6 +17,9 @@ The counterpart of ``season_nerf_tpu/train/state.py``.
   written and read through the port's codec (``utils/msgpack_lite.py``) and
   weight bridge (``utils/convert.py``), so a model directory written by
   either package loads in the other.
+- :func:`load_weights` reads the weights and statistics of any of these,
+  and of the JAX package's checkpoints, for the tools that score save
+  points.
 """
 
 from __future__ import annotations
@@ -158,3 +161,19 @@ def load_model_artifact(path: str
     sd = state_dict_from_flax(payload["params"],
                               payload.get("batch_stats", {}))
     return sd, payload.get("meta", {})
+
+
+def load_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The weights and running statistics of ``path`` as the port's state
+    dict, whatever wrote it: the port's full-state checkpoint, the JAX
+    package's (``{"state": {"params", "batch_stats", ...}}``) or a
+    ``Final_Model.nn`` artifact of either package."""
+    with open(path, "rb") as f:
+        payload = msgpack_lite.unpackb(f.read())
+    if "model" in payload:                  # the port's checkpoint
+        return {k: torch.as_tensor(np.array(v))
+                for k, v in payload["model"].items()}
+    if "state" in payload:                  # the JAX package's checkpoint
+        payload = payload["state"]
+    return state_dict_from_flax(payload["params"],
+                                payload.get("batch_stats", {}))

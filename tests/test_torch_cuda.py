@@ -12,7 +12,9 @@ hierarchical training step on the card against the CPU, ``pallas_trunk``
 refusing hierarchical sampling, and K3 built at ``FAST_SIN_DEGREE=7``;
 K3 above the flagship's shapes (widths 640-1024, 11 and 17 layers), wide
 models' frames, a converted reference checkpoint's frame and a movie on
-the card against the CPU.
+the card against the CPU; K3 called as the operator
+``season_nerf::trunk_apply``, and render programs exported on the card,
+loaded back and held against the live chunk.
 
 Every test here needs a CUDA card and skips without one.  Run them on a
 machine with an H100, from the repository root:
@@ -156,6 +158,72 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert ft.trunk_apply(pe[:0], folded).shape == (0, 16)
     assert ft.trunk_apply.launches == launches       # nothing to launch
 
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_operator_matches_plain_version(cuda, dtype):
+    """``season_nerf::trunk_apply`` called as an operator on the card: the
+    kernel (one launch a call) within chip_smoke.TOL of the plain version,
+    the bytes of ``trunk_apply``'s, and one launch state a set of weights
+    however often it is called."""
+    folded = ft.fold_trunk(_model(512, 8).G_NeRF_net, dtype=dtype,
+                           device=cuda)
+    pe = _pe(FAST_N, cuda)
+    args = (pe, folded.weights, folded.biases, folded.ring_weights,
+            folded.inputs.index("h+pe"), 512, folded.width_pad,
+            folded.out_features, True)
+    launches = ft.trunk_apply.launches
+    got = torch.ops.season_nerf.trunk_apply(*args)
+    states = len(ft._launch_states)
+    again = ft.trunk_op(*args)
+    via = ft.trunk_apply(pe, folded, True)
+    torch.cuda.synchronize()
+    assert ft.trunk_apply.launches == launches + 3
+    assert len(ft._launch_states) == states
+    assert torch.equal(got, again) and torch.equal(got, via)
+    want = ft.trunk_apply_reference(pe, folded, True)
+    err = (got - want).abs()
+    tol_max, tol_mean = TOL[dtype]
+    assert float(err.max()) <= tol_max and float(err.mean()) <= tol_mean
+
+
+@pytest.mark.parametrize("fast", [None, FAST_RENDER], ids=["exact", "fast"])
+@pytest.mark.parametrize("legacy", [False, True], ids=["bf16", "f32"])
+def test_exported_program_on_the_card_matches_live(cuda, tmp_path, legacy,
+                                                   fast):
+    """``tools/export_render`` on the card: nothing launched while
+    exporting; the saved program, loaded back, equal to the live
+    ``Renderer._full_chunk`` within the tool's 2e-5 (the same kernel and
+    aten ops), with 1 K3 launch a call exact and 2 fast; bf16, and a legacy
+    directory (float32, ``sinf``: K3-f32 with the ring copy)."""
+    from season_nerf_torch.tools import export_render
+    cfg = Config(fc_units=128, fc_layers=4, n_samples=16, chunk=300)
+    d = str(tmp_path / "model")
+    os.makedirs(d)
+    (write_legacy_model_dir if legacy else write_model_dir)(
+        d, make_model(cfg), cfg, (0.0, 30.0))
+    out = str(tmp_path / "render.pt2")
+    argv = [d, "-o", out, "--device", "cuda"]
+    if fast:
+        argv += ["--fast_render", *map(str, fast)]
+    launches = ft.trunk_apply.launches
+    export_render.main(argv)
+    assert ft.trunk_apply.launches == launches
+    program = export_render.load_exported(out)
+    live = load_model_dir(d, device=cuda, fast_render=fast).renderer
+    rays = [torch.from_numpy(a).to(cuda)
+            for a in export_render.check_rays(cfg.chunk)]
+    with torch.no_grad():
+        want = live._full_chunk(*rays)
+        launches = ft.trunk_apply.launches
+        got = program(*rays)
+        torch.cuda.synchronize()
+    assert ft.trunk_apply.launches - launches == (2 if fast else 1)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.isfinite(got[k]).all(), k
+        torch.testing.assert_close(got[k], want[k], rtol=2e-5, atol=2e-5)
 
 # K3 above the flagship's shapes (chip_smoke.WIDE_TRUNKS): the bf16
 # kernel's wide instance at padded widths 640, 768 and 1024, the f32 kernel

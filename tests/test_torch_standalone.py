@@ -9,7 +9,9 @@ with hierarchical sampling), by evaluating a model into ``Analysis.pickle``
 and ``Output/``, by ``cli.eval_region`` (``run_test`` with ``eval_only``,
 ``regional_eval`` into ``Detailed_Output/``, ``multi_region_merge`` into
 ``Full_Summary/``), and by the tools: a reference checkpoint converted, a
-movie made from it, and TensorBoard records written."""
+movie made from it, and TensorBoard records written; a render program
+exported and loaded back, the fast-render A/B, the concurrent-client bench,
+the quality report."""
 
 import ast
 import os
@@ -242,6 +244,42 @@ TOOLS_SCRIPT = BLOCK + textwrap.dedent("""
 """)
 
 
+RUN_TOOLS_SCRIPT = BLOCK + textwrap.dedent("""
+    import json
+    from season_nerf_torch.config import Config
+    from season_nerf_torch.models.tnerf import model_from_config
+    from season_nerf_torch.tools import (bench_serving_concurrent,
+                                         export_render, fast_render_ab,
+                                         quality_report, time_to_quality)
+    from season_nerf_torch.train.state import save_model_artifact
+
+    d = tempfile.mkdtemp()
+    cfg = Config(site_name="tools", fc_units=32, fc_layers=2, n_samples=8,
+                 chunk=64)
+    cfg.save_json(os.path.join(d, "opts.json"))
+    torch.manual_seed(0)
+    save_model_artifact(os.path.join(d, "Final_Model.nn"),
+                        model_from_config(cfg).state_dict())
+    out = export_render.main([d, "--check", "--device", "cpu",
+                              "--fast_render", "8", "8"])
+    assert json.load(open(out + ".json"))["fast_render"] == [8, 8]
+    ab = fast_render_ab.main(["--Model_Location", d, "--size", "8",
+                              "--views", "1", "--coarse", "8", "--fine",
+                              "8", "--device", "cpu"])
+    assert len(ab["psnr_fast_vs_exact"]) == 1
+    levels = bench_serving_concurrent.main([d, "--size", "8", "--clients",
+                                            "1", "--requests", "1",
+                                            "--device", "cpu"])["levels"]
+    assert levels[0]["errors"] == 0
+    assert "Quality report" in quality_report.build_report(d)
+    small = time_to_quality.area_resize(np.ones((16, 16)), (12, 12))
+    assert np.allclose(small, 1.0)
+    loaded = sorted(k for k in sys.modules if k.split(".")[0] in BANNED)
+    assert not loaded, loaded
+    print("RUN TOOLS")
+""")
+
+
 def _run_blocked(script, word):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run(
@@ -270,3 +308,10 @@ def test_port_evaluates_regions_with_jax_and_the_jax_package_blocked():
 def test_port_tools_run_with_jax_and_imaging_packages_blocked():
     """~10 s on one worker."""
     _run_blocked(TOOLS_SCRIPT, "TOOLS")
+
+
+def test_port_run_tools_run_with_jax_and_imaging_packages_blocked():
+    """The export (and its round-trip check), the fast-render A/B, the
+    concurrent-client bench, the quality report and the area resize; ~15 s
+    on one worker."""
+    _run_blocked(RUN_TOOLS_SCRIPT, "RUN TOOLS")
