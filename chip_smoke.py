@@ -74,7 +74,16 @@ Phases, each fatal on failure:
    flagship chunk (5,120 rays x 96 samples) and held against the live
    ``Renderer._full_chunk`` within 2e-5, K3 launched once a call exact and
    twice fast, the program's chunk time beside the live chunk's (CUDA
-   events, in turns) and its size;
+   events, in turns) and its size; then the data-parallel mesh
+   (``parallel/mesh.py``) on the one card: the render cell's model on a
+   render mesh of two replicas on the card (128 px, exact and fast, K3
+   twice a chunk, four times fast) against one device, 3 flagship
+   default-trunk steps on a training mesh of the card over NCCL at world
+   size 1 and on two gloo ranks sharing the card (2048 rays each), each
+   against the same steps with no mesh (every loss, the weights, the
+   running statistics, the ranks' checksums, each rank's peak memory),
+   and the refusals (``pallas_trunk`` on a mesh, ``cli.run_train`` with a
+   ``mesh_shape`` above the cards);
 5. the training main path: the flagship training config with
    ``pallas_trunk`` through ``Trainer`` on the synthetic site of
    ``bench.py`` in phase 1 (DSM prior on), one warm step and 20 timed
@@ -147,8 +156,8 @@ Phases, each fatal on failure:
    share, K3's launches against the chunking, finite scores and every
    file;
 8. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
-   summed over the main paths, the exported programs' and the tools'
-   included, K3's f32 kernel with the legacy and the converted
+   summed over the main paths, the exported programs', the render mesh's
+   and the tools' included, K3's f32 kernel with the legacy and the converted
    directories' and the float32 program's launches, and K3's wide bf16
    instance with the 640-wide frame's), then, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -3974,6 +3983,214 @@ def real_site_path(device, views=SITE_VIEWS, px=SITE_PX, steps=SITE_STEPS,
     return report
 
 
+# --- the data-parallel mesh (parallel/mesh.py) on the one card ---------------
+MESH_SIZE = 128                 # px of the render mesh's frames
+MESH_STEPS = 3                  # training steps a mesh run
+# the mesh's steps against the no-mesh steps from the same weights and
+# draws: every loss to CPU_CARD_RTOL / CPU_CARD_ATOL (the order of the sums
+# differs, and a flipped bf16 rounding moves a loss by a few 1e-4); the
+# weights to test_parallel's atol 2e-4 (in 3 steps at the OneCycle's
+# start, lr / 25, Adam moves no weight by more than 2e-6: a bound on the
+# sign noise of near-zero gradients, not a measure of the step); the
+# running statistics to 1e-3 (0.01 of each pass's batch statistics over
+# 393,216 points, where a flipped rounding averages out)
+MESH_WEIGHT_ATOL = 2e-4
+MESH_RUNNING_ATOL = 1e-3
+
+
+def mesh_render(model, cfg, device, size=MESH_SIZE) -> dict:
+    """(a) The render mesh: ``make_mesh(devices=[card, card])``, two
+    replicas on the one card, renders the render cell's model at ``size``
+    px, exact and with ``fast_render``, against the one-device renderer;
+    K3's launches twice a chunk exact (4 times fast: two passes a part).
+    The launch counts are set to 0 just before each mesh frame and read
+    just after."""
+    from season_nerf_torch.ops import fused_trunk as ft
+    from season_nerf_torch.parallel.mesh import make_mesh
+    from season_nerf_torch.render.renderer import Renderer
+    model = model.to(device).eval()
+    args = ((70.0, 30.0), (45.0, 180.0), 0.5, size)
+    report = {"k3_launches": 0}
+    for label, fast, passes in (("exact", None, 1),
+                                ("fast", FAST_RENDER, 2)):
+        kw = dict(n_samples=cfg.n_samples, chunk=cfg.chunk,
+                  fast_render=fast)
+        one = Renderer(model, **kw)
+        two = Renderer(model, mesh=make_mesh(devices=[device, device]), **kw)
+        if len(two.replicas) != 2 or two.replicas[1][0] is model:
+            fail("the render mesh did not build a second replica")
+        secs = {}
+        for name, r in (("one", one), ("mesh", two)):
+            r.render_img(*args)                     # warm
+            torch.cuda.synchronize()
+            ft.trunk_apply.launches = 0
+            t0 = time.perf_counter()
+            out = r.render_img(*args)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            launches = ft.trunk_apply.launches
+            if name == "mesh":
+                got, mesh_launches = out, launches
+            else:
+                want = out
+        chunks = -(-size * size // two.chunk)
+        if mesh_launches != 2 * passes * chunks:
+            fail(f"render mesh ({label}): K3 launched {mesh_launches} "
+                 f"times; {chunks} chunks split over 2 replicas, {passes} "
+                 f"pass(es) a part, make {2 * passes * chunks}")
+        err = max(float(np.nanmax(np.abs(got[k] - want[k])))
+                  for k in ("Col_Img", "Shadow_Mask", "Height"))
+        if not err <= RENDER_TOL:
+            fail(f"render mesh ({label}): {err} from one device (tolerance "
+                 f"{RENDER_TOL})")
+        report["k3_launches"] += mesh_launches
+        report[label] = {"frame_s": secs["mesh"], "one_device_s": secs["one"],
+                         "k3_launches": mesh_launches, "chunks": chunks,
+                         "max_abs_err": err}
+        log(f"  render mesh of 2 replicas, {label}: {size} px frame "
+            f"{secs['mesh']:.4f} s (one device {secs['one']:.4f} s), K3 "
+            f"{mesh_launches} launches over {chunks} chunks, max |mesh - "
+            f"one device| {err:.2e}")
+    return report
+
+
+def mesh_steps_against(ref: dict, run: dict, what: str) -> dict:
+    """Every loss of every step and the weights, running statistics and
+    latents of a mesh run against the no-mesh run ``ref`` -> the largest
+    differences."""
+    worst = {"loss_rel": 0.0, "weight": 0.0, "running": 0.0}
+    for i, (a, b) in enumerate(zip(ref["scalars"], run["scalars"])):
+        if set(a) != set(b):
+            fail(f"{what}: step {i} logs {sorted(b)}, not {sorted(a)}")
+        for k in a:
+            d = abs(a[k] - b[k])
+            if not d <= CPU_CARD_ATOL + CPU_CARD_RTOL * abs(a[k]):
+                fail(f"{what}: step {i} {k} {b[k]} against {a[k]}")
+            rel = d / max(abs(a[k]), 1e-12)
+            if rel > worst["loss_rel"]:
+                worst.update(loss_rel=rel, loss_worst=[i, k, b[k], a[k]])
+    for k, want in ref["state_dict"].items():
+        d = float((run["state_dict"][k].double()
+                   - want.double()).abs().max())
+        key, tol = (("running", MESH_RUNNING_ATOL) if "running" in k
+                    else ("weight", MESH_WEIGHT_ATOL))
+        if not d <= tol:
+            fail(f"{what}: {k} differs by {d} (tolerance {tol})")
+        worst[key] = max(worst[key], d)
+    for g, lat in ref["ada"].items():
+        for k, t in lat.items():
+            d = float((run["ada"][g][k] - t).abs().max())
+            if not d <= MESH_WEIGHT_ATOL:
+                fail(f"{what}: latent {g}.{k} differs by {d}")
+    if len(set(run["checksums"])) != 1:
+        fail(f"{what}: the ranks' weights differ: {run['checksums']}")
+    return worst
+
+
+def mesh_train(device, cfg=None) -> dict:
+    """(b) MESH_STEPS flagship default-trunk steps (batch 4096 x 96, the
+    DSM prior on) on a mesh of the one card over NCCL at world size 1, and
+    (c) on two gloo ranks sharing the card (2048 rays each), both against
+    the same steps with no mesh from the same weights (the seed) and draws
+    (keyed by step), every rank's peak memory recorded.  On the CPU (a
+    rehearsal) both run on gloo."""
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    from season_nerf_torch.parallel.mesh import backend_for, launch, make_mesh
+    from season_nerf_torch.train.engine import train_steps
+    cfg = cfg or flagship_train_config(pallas_trunk=False)
+    scene = make_scene(n_views=6, img_size=48, grid=64, seed=0)
+    table, _ = scene_ray_tables(scene, testing_size=1)
+    report = {}
+    t0 = time.perf_counter()
+    ref = train_steps(None, cfg, table, MESH_STEPS, scene.prior_hm,
+                      device=device)
+    report["no_mesh"] = {"s": time.perf_counter() - t0,
+                         "peak_mem_gb": (ref["peak_mem_bytes"] or 0) / 1e9}
+    torch.cuda.empty_cache()    # the ranks are other processes
+    for key, devices in (("nccl_world_1", [device]),
+                         ("gloo_two_ranks", [device, device])):
+        mesh = make_mesh(devices=devices)
+        backend = backend_for(mesh)
+        t0 = time.perf_counter()
+        ranks = launch(train_steps, mesh, cfg, table, MESH_STEPS,
+                       scene.prior_hm)
+        secs = time.perf_counter() - t0
+        worst = mesh_steps_against(ref, ranks[0], key)
+        if any(r["checksums"] != ranks[0]["checksums"] for r in ranks):
+            fail(f"{key}: the ranks report other checksums")
+        peaks = [(r["peak_mem_bytes"] or 0) / 1e9 for r in ranks]
+        report[key] = {"backend": backend, "ranks": len(devices),
+                       "launch_s": secs, "peak_mem_gb": peaks, **worst,
+                       "last_total": ranks[0]["scalars"][-1]["Total"]}
+        log(f"  {key} ({backend}, {len(devices)} rank(s)): {MESH_STEPS} "
+            f"steps in {secs:.1f} s with the spawn; largest difference from "
+            f"the no-mesh steps: loss {worst['loss_rel']:.2e} relative "
+            f"(step, loss, mesh, no mesh: {worst.get('loss_worst')}), "
+            f"weight {worst['weight']:.2e}, running statistic "
+            f"{worst['running']:.2e}; peak memory a rank "
+            f"{[round(p, 2) for p in peaks]} GB (no mesh "
+            f"{report['no_mesh']['peak_mem_gb']:.2f} GB)")
+    return report
+
+
+def refusals_on_a_mesh(device) -> dict:
+    """(d) ``pallas_trunk`` with a mesh raises on the card, and
+    ``cli.run_train`` with ``mesh_shape=2`` on the one card raises the JAX
+    package's message before the site is prepared."""
+    from season_nerf_torch import cli
+    from season_nerf_torch.config import get_opts
+    from season_nerf_torch.models.tnerf import model_from_config
+    from season_nerf_torch.parallel.mesh import make_mesh
+    from season_nerf_torch.train.engine import fused_trunk_spec
+    cfg = flagship_train_config()
+    model = model_from_config(cfg).to(device).train()
+    try:
+        fused_trunk_spec(model, cfg.batch_size * cfg.n_samples, device,
+                         mesh=make_mesh(devices=[device, device]))
+        fail("pallas_trunk on a mesh did not raise on the card")
+    except ValueError as e:
+        spec_msg = str(e)
+    n = torch.cuda.device_count() if torch.device(device).type == "cuda" \
+        else 1
+    prepared = []
+    saved = cli._prepare
+    cli._prepare = lambda *a, **k: prepared.append(a)
+    try:
+        with tempfile.TemporaryDirectory() as io_dir:
+            run_cfg = get_opts(["--site_name", "SYNTH_MESH", "--exp_name",
+                                "m", "--IO_Location", io_dir,
+                                "--mesh_shape", str(n + 1)])
+            try:
+                cli.run_train(run_cfg, device=device)
+                fail(f"run_train with mesh_shape={n + 1} did not raise")
+            except ValueError as e:
+                run_msg = str(e)
+    finally:
+        cli._prepare = saved
+    want = (f"mesh_shape={n + 1} but only {n} device(s) are visible; lower "
+            f"mesh_shape or run on a larger slice")
+    if run_msg != want or prepared:
+        fail(f"run_train raised {run_msg!r} (prepared {len(prepared)} "
+             f"sites), not {want!r} before preparing")
+    log(f"  refusals: pallas_trunk on a mesh ({spec_msg}); run_train "
+        f"mesh_shape={n + 1} ({run_msg})")
+    return {"pallas_trunk": spec_msg, "run_train": run_msg}
+
+
+def mesh_path(model, cfg, device) -> dict:
+    """The mesh phase on the one card: (a) the render mesh, (b) NCCL at
+    world size 1, (c) two gloo ranks sharing the card, (d) the
+    refusals."""
+    t0 = time.perf_counter()
+    report = {"render": mesh_render(model, cfg, device)}
+    report["train"] = mesh_train(device)
+    report["refusals"] = refusals_on_a_mesh(device)
+    report["k3_launches"] = report["render"]["k3_launches"]
+    report["seconds"] = time.perf_counter() - t0
+    log(f"  mesh phase {report['seconds']:.1f} s")
+    return report
+
+
 def ptxas_entries(report: str, mark: str) -> dict:
     """ptxas's lines for each compiled entry whose name holds ``mark``:
     registers, shared memory, stack and spills."""
@@ -4163,6 +4380,11 @@ def main():
         f"fast {FAST_RENDER} and its legacy float32 directory), each "
         "program loaded in a fresh process and called on a flagship chunk")
     export = export_path(model, cfg, device)
+
+    log("main path: the data-parallel mesh on the one card (the render mesh "
+        "of two replicas, NCCL at world size 1, two gloo ranks sharing the "
+        "card, the refusals)")
+    mesh = mesh_path(model, cfg, device)
     del model
     torch.cuda.empty_cache()
 
@@ -4204,7 +4426,7 @@ def main():
         "source": "season_nerf_torch/csrc/trunk_infer.cu",
         "replaces": "season_nerf_tpu/ops/pallas_mlp.py:106",
         "launches": (serving["k3_launches"] + fast["k3_launches"]
-                     + movie["k3_launches"]
+                     + movie["k3_launches"] + mesh["k3_launches"]
                      + export["k3_launches"]["bfloat16"]
                      + tools["k3_launches"]
                      + hierarchical["k3_launches"] + hsluv["k3_launches"]
@@ -4283,7 +4505,7 @@ def main():
                    "trunk": trunk, "serving": serving, "fast_render": fast,
                    "legacy_f32": legacy, "wide": wide,
                    "reference": reference, "movie": movie,
-                   "export": export, "tools": tools,
+                   "export": export, "mesh": mesh, "tools": tools,
                    "train_kernels": train_kernels, "gemms": gemms,
                    "degrees": degrees, "training": training,
                    "hierarchical": hierarchical, "hsluv": hsluv,

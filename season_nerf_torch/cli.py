@@ -27,7 +27,10 @@ site under ``IO_Location`` (``IEEE_Data/Images/*_RGB.tif``,
 ``Cache/<site>/`` with the ``.ikono`` RPCs and ``RPCs/*.IMD``,
 ``IEEE_Data/Track3-Truth/<site>_DSM.{tif,txt}``): ingest, camera fits, ray
 table, the DSM prior (space carving swept on the training device) and
-training.  ``eval_region`` is ``main_eval_region.py``: evaluate each
+training.  On several devices (``mesh_shape``; None: every visible card)
+``train`` prepares the site once, trains one process per device over
+``torch.distributed`` (``parallel/mesh.py``) and evaluates on the render
+mesh.  ``eval_region`` is ``main_eval_region.py``: evaluate each
 model directory as ``train`` does (``run_test`` with ``eval_only``), then
 merge their ``Detailed_Output/`` into ``--Output`` (default
 ``Full_Summary`` beside the first); ``--full`` is parsed and unused, as in
@@ -42,6 +45,7 @@ season_nerf_torch.render.serving``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import os
 import re
@@ -58,7 +62,8 @@ from season_nerf_torch.ops.fused_trunk import refuse_on_card
 from season_nerf_torch.priors import space_carving
 from season_nerf_torch.geometry.time_enc import year_frac_from_month_day
 from season_nerf_torch.render.loading import load_model_dir
-from season_nerf_torch.train.engine import mesh_refusal
+from season_nerf_torch.parallel.mesh import Mesh, launch
+from season_nerf_torch.train.engine import _auto_mesh
 from season_nerf_torch.render.renderer import images_from_components
 from season_nerf_torch.render.serving import png_bytes
 
@@ -86,7 +91,8 @@ def render_pretrained(model_dir: str, va: Tuple[float, float],
     hw = (size[0], size[1] if len(size) > 1 else size[0])
     n_samples = size[2] if len(size) > 2 else None
 
-    loaded = load_model_dir(model_dir, n_samples=n_samples, device=device)
+    loaded = load_model_dir(model_dir, n_samples=n_samples, use_mesh=True,
+                            device=device)
     comp = loaded.renderer.component_render_by_dir(
         tuple(va), tuple(sa), year_frac, hw,
         angles_to_vec=loaded.angles_to_vec, exact_solar=exact_shadow)
@@ -217,47 +223,89 @@ def _prepare(cfg: Config, device):
     return prepare_real(cfg, device=device)
 
 
-def _train(cfg: Config, prep, train_steps: Optional[int], device):
+@dataclasses.dataclass
+class MeshRun:
+    """What a run on a mesh returns in the calling process, where no
+    Trainer lives: the ranks trained in processes of their own."""
+    step: int
+    model: object           # rank 0's last weights (TNeRF), on ``device``
+
+
+def _train_rank(mesh: Mesh, cfg: Config, prep, train_steps):
+    """A rank of :func:`_train` on a mesh -> the step reached and, from
+    rank 0, the model's weights on the CPU."""
+    trainer = _train(cfg, prep, train_steps, mesh.device, mesh)
+    sd = ({k: v.detach().cpu() for k, v in
+           trainer.model.state_dict().items()} if mesh.rank == 0 else None)
+    return trainer.step, sd
+
+
+def _train(cfg: Config, prep, train_steps: Optional[int], device,
+           mesh: Optional[Mesh] = None):
     """Train on the prepared site (resuming from the newest checkpoint of
     the log directory when ``cfg.resume``; a finished run skips to the
-    end), finalize and write the validation report -> the Trainer."""
+    end), finalize and write the validation report -> the Trainer.  On a
+    ``mesh`` of devices, one rank a device (:func:`parallel.mesh.launch`),
+    the ray tables handed over in shared memory -> a :class:`MeshRun`."""
+    from season_nerf_torch.data.dataset import as_table, shared_table
     from season_nerf_torch.geometry.units import sun_frame_from_site
+    from season_nerf_torch.models.tnerf import model_from_config
     from season_nerf_torch.train.engine import Trainer
-    _, table, train_idx, test_idx, prior, gt_dsm, _, wc, S = prep
+    _, table, train_idx, test_idx, prior, gt_dsm, h_range, wc, S = prep
+    if mesh is not None and mesh.group is None:
+        tables = tuple(None if t is None else shared_table(t) for t in (
+            table.split(np.array(train_idx)),
+            table.split(np.array(test_idx)) if test_idx else None))
+        ranks = launch(_train_rank, mesh, cfg,
+                       (None, tables, None, None, prior, gt_dsm, h_range,
+                        wc, S), train_steps)
+        model = model_from_config(cfg).load_weights(ranks[0][1])
+        return MeshRun(step=ranks[0][0], model=model.to(device))
     sun_frame = sun_frame_from_site(wc, S) if wc is not None else None
-    val_table = table.split(np.array(test_idx)) if test_idx else None
-    trainer = Trainer(cfg, table.split(np.array(train_idx)), val_table,
-                      prior_hm=prior, gt_dsm=gt_dsm, sun_frame=sun_frame,
-                      device=device)
+    if mesh is not None:        # a rank: the tables came in shared memory
+        train_table, val_table = (None if t is None else as_table(t)
+                                  for t in table)
+    else:
+        train_table = table.split(np.array(train_idx))
+        val_table = table.split(np.array(test_idx)) if test_idx else None
+    trainer = Trainer(cfg, train_table, val_table, prior_hm=prior,
+                      gt_dsm=gt_dsm, sun_frame=sun_frame, device=device,
+                      mesh=mesh)
     step_of = lambda p: int(re.search(r"Model_(\d+)\.nn$", p).group(1))
     ckpts = sorted(glob.glob(os.path.join(cfg.logs_dir, "Model_*.nn")),
                    key=step_of)
+    say = print if trainer.writes else (lambda *a: None)   # rank 0 speaks
     if ckpts and cfg.resume and step_of(ckpts[-1]) > 0:
-        print(f"resuming from {ckpts[-1]}")
+        say(f"resuming from {ckpts[-1]}")
         trainer.resume(ckpts[-1])
     if trainer.step < cfg.max_train_steps:
         trainer.run(n_steps=train_steps)
     else:
-        print("training already complete; skipping to the validation report")
+        say("training already complete; skipping to the validation report")
     trainer.finalize()
     trainer.validation_report()
     return trainer
 
 
 def run_train(cfg: Config, train_steps: Optional[int] = None,
-              device="cuda"):
+              device="cuda", mesh: Optional[Mesh] = None):
     """Prepare the site, train (resuming from the newest checkpoint of the
     log directory when ``cfg.resume``; a finished run skips to the end),
-    finalize and write the validation report -> the Trainer.  ``cfg`` is
-    what :func:`get_opts` returns: its directories resolved, a resumed
-    run's recorded settings adopted and opts.json written."""
-    mesh_refusal(cfg, device)           # before the site is prepared
-    return _train(cfg, _prepare(cfg, device), train_steps, device)
+    finalize and write the validation report -> the Trainer, or a
+    :class:`MeshRun` where the run took a mesh: ``mesh``, else the one
+    :func:`_auto_mesh` gives (``mesh_shape``; None: every visible card),
+    decided before the site is prepared.  ``cfg`` is what :func:`get_opts`
+    returns: its directories resolved, a resumed run's recorded settings
+    adopted and opts.json written."""
+    if mesh is None:
+        mesh = _auto_mesh(cfg, device)
+    return _train(cfg, _prepare(cfg, device), train_steps, device, mesh)
 
 
 def run_test(cfg: Config, eval_only: bool = False,
              train_steps: Optional[int] = None, eval_img_size=None,
-             eval_season_size=None, device="cuda"):
+             eval_season_size=None, device="cuda",
+             mesh: Optional[Mesh] = None):
     """The pipeline of ``main.py``: prepare the site; train as
     :func:`run_train` does (or, with ``eval_only``, load the model
     directory ``cfg.logs_dir``); then evaluate the model that
@@ -271,7 +319,9 @@ def run_test(cfg: Config, eval_only: bool = False,
     the walks from 128 px to H, and then both suites take ``cfg.n_samples``
     for the height map (and the regional suite for the shadow rays);
     ``eval_season_size`` (H, W) shrinks the regional season walk from
-    64 x 64."""
+    64 x 64.  Training takes ``mesh`` as :func:`run_train` does; the
+    evaluation renders on it (with ``eval_only``, on the one that
+    :func:`_auto_mesh` gives with ``strict=False``)."""
     from season_nerf_torch.eval.regional import (analyze_model,
                                                  regional_eval,
                                                  write_analysis_outputs)
@@ -279,8 +329,10 @@ def run_test(cfg: Config, eval_only: bool = False,
     from season_nerf_torch.models.tnerf import model_from_config
     from season_nerf_torch.render.renderer import Renderer
     from season_nerf_torch.train.state import load_model_artifact
-    if not eval_only:
-        mesh_refusal(cfg, device)       # before the site is prepared
+    if eval_only:
+        mesh = mesh or _auto_mesh(cfg, device, strict=False)
+    elif mesh is None:
+        mesh = _auto_mesh(cfg, device)      # before the site is prepared
     prep = _prepare(cfg, device)
     cams, _, _, test_idx, prior, gt_dsm, h_range, wc, S = prep
     if eval_only:
@@ -288,7 +340,7 @@ def run_test(cfg: Config, eval_only: bool = False,
         model = load_model_dir(cfg.logs_dir, device=device).model
         trainer = None
     else:
-        trainer = _train(cfg, prep, train_steps, device)
+        trainer = _train(cfg, prep, train_steps, device, mesh)
         model = trainer.model
         if cfg.final_model_selection != "last" and cfg.logs_dir:
             # finalize() may have chosen an earlier save point: evaluate
@@ -298,7 +350,7 @@ def run_test(cfg: Config, eval_only: bool = False,
             model = model_from_config(cfg).load_weights(sd).to(device)
     renderer = Renderer(model, n_samples=cfg.n_samples, chunk=cfg.chunk,
                         classic_solar=cfg.Solar_Type_2,
-                        use_hsluv=cfg.use_HSLuv)
+                        use_hsluv=cfg.use_HSLuv, mesh=mesh)
     angles_to_vec = (angles_to_vec_from_site(wc, S) if wc is not None
                      else None)
     analysis = analyze_model(

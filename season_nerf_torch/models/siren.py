@@ -15,6 +15,12 @@ E[z]^2)``.  The running statistics are updated by hand with that biased
 variance and flax's momentum 0.99 (``running = 0.99 running + 0.01
 batch``); ``BatchNorm1d``'s own update, which uses the unbiased variance,
 never runs.  The sine's gradient is the cosine (``ops/fast_math``).
+
+Under a training mesh (``parallel/mesh.py``; the trainer sets the layer's
+``mesh``) the statistics are those of the global batch, as GSPMD computes
+them for the JAX package: one all-reduce of ``[sum z, sum z^2, rows]``,
+then the same fast variance and the same running update, so the running
+statistics stay identical on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from torch import nn
 
 from season_nerf_torch.ops.fast_math import fast_sin
+from season_nerf_torch.parallel.mesh import all_reduce_sum
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99      # flax's; torch's BatchNorm1d momentum 0.01
@@ -77,6 +84,7 @@ class SineLayer(nn.Module):
         self.linear = SplitDense(in_features, out_features)
         self.norm = (nn.BatchNorm1d(out_features, eps=BN_EPS, momentum=0.01)
                      if use_norm else None)
+        self.mesh = None        # the training ranks' Mesh: global statistics
 
     def bn_eval(self, z: torch.Tensor) -> torch.Tensor:
         n = self.norm
@@ -84,11 +92,19 @@ class SineLayer(nn.Module):
         return (z - n.running_mean.float()) * mul + n.bias.float()
 
     def bn_train(self, z: torch.Tensor) -> torch.Tensor:
-        """Batch statistics (flax's fast variance), and the running update
-        in place."""
+        """Batch statistics (flax's fast variance) of the global batch,
+        and the running update in place."""
         n = self.norm
-        mean = z.mean(0)
-        var = torch.clamp(torch.mean(z * z, 0) - mean * mean, min=0.0)
+        if self.mesh is None:
+            mean = z.mean(0)
+            sq = torch.mean(z * z, 0)
+        else:
+            c = z.shape[1]
+            sums = all_reduce_sum(torch.cat(
+                [z.sum(0), (z * z).sum(0), z.new_full((1,), z.shape[0])]),
+                self.mesh)
+            mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             keep = BN_MOMENTUM
             n.running_mean.copy_(keep * n.running_mean + (1 - keep) * mean)

@@ -19,7 +19,7 @@ from season_nerf_torch.data.ingest import load_w2c_w2l
 from season_nerf_torch.models.tnerf import TNeRF, model_from_config
 from season_nerf_torch.ops.fused_trunk import refuse_on_card
 from season_nerf_torch.render.renderer import Renderer
-from season_nerf_torch.train.engine import mesh_refusal
+from season_nerf_torch.train.engine import _auto_mesh
 from season_nerf_torch.train.state import load_model_artifact
 
 
@@ -34,18 +34,21 @@ class LoadedModel:
 
 
 def load_model_dir(model_dir: str, n_samples: Optional[int] = None,
-                   chunk: Optional[int] = None,
+                   chunk: Optional[int] = None, use_mesh: bool = False,
                    fast_render: Optional[Tuple[int, int]] = None,
                    device="cuda") -> LoadedModel:
     """Load ``model_dir`` onto ``device`` (``cuda`` unless the caller asks
     for ``cpu``).  ``n_samples``/``chunk`` override the recorded values;
     ``fast_render=(n_coarse, n_fine)`` makes the Renderer depth-guided.
-    An opts.json that records a ``mesh_shape`` above 1 warns and renders
-    on ``device`` (:func:`mesh_refusal`)."""
+    ``use_mesh`` renders on the render mesh that the opts.json's
+    ``mesh_shape`` gives on ``device``'s type (every visible card for
+    None; :func:`_auto_mesh` with ``strict=False``, so a larger mesh than
+    there are devices warns and clamps); without it ``mesh_shape`` is not
+    read and the model renders on ``device``."""
     device = torch.device(device)
     cfg = Config.load_json(os.path.join(model_dir, "opts.json"))
     refuse_on_card(cfg, device)         # before the weights or a fold
-    mesh_refusal(cfg, device, strict=False)
+    mesh = _auto_mesh(cfg, device, strict=False) if use_mesh else None
     sd, _ = load_model_artifact(os.path.join(model_dir, "Final_Model.nn"))
     model = model_from_config(cfg).load_weights(sd).to(device)
     model.G_NeRF_net.fused()            # fold the trunk once, on the device
@@ -62,6 +65,7 @@ def load_model_dir(model_dir: str, n_samples: Optional[int] = None,
     renderer = Renderer(model, n_samples=n_samples or cfg.n_samples,
                         chunk=chunk or cfg.chunk,
                         classic_solar=cfg.Solar_Type_2,
-                        use_hsluv=cfg.use_HSLuv, fast_render=fast_render)
+                        use_hsluv=cfg.use_HSLuv, fast_render=fast_render,
+                        mesh=mesh)
     return LoadedModel(cfg=cfg, model=model, renderer=renderer,
                        angles_to_vec=angles_to_vec, h_range=h_range)

@@ -20,10 +20,18 @@ Rays are processed ``chunk`` rays per dispatch on the composite paths and
 ``chunk`` points per dispatch on the exact-solar path; every dispatch runs
 the network once through the fused trunk kernel.  Results stay on the
 device until the frame is done, then cross to the host once.
+
+``Renderer(mesh=...)`` renders on a mesh of devices (``parallel/mesh.py``)
+in this one process: ``chunk`` is rounded up to a multiple of its size,
+each device holds a replica of the model (its trunk folded there), and
+every chunk's rays are split over the replicas in order, each part run on
+its device (K3 there) and the results gathered on the first.  Every ray is
+independent, so the image is the one device's.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -220,36 +228,63 @@ class Renderer:
     """Whole-image renderer over a trained T-NeRF (a ``TNeRF`` in eval mode
     whose weights already sit on the device to render on).
     ``fast_render=(n_coarse, n_fine)`` renders the composite and the
-    component paths depth-guided (None: the uniform ``n_samples``)."""
+    component paths depth-guided (None: the uniform ``n_samples``).
+    ``mesh`` (of more than one device) splits every chunk over a replica
+    of the model on each of its devices; the results gather on its first
+    device."""
 
     def __init__(self, model, n_samples=96, chunk=5_120, classic_solar=False,
                  sun_frame: Optional[np.ndarray] = None,
                  use_hsluv: bool = False,
-                 fast_render: Optional[Tuple[int, int]] = None):
+                 fast_render: Optional[Tuple[int, int]] = None, mesh=None):
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.n_samples = n_samples
         self.fast_render = tuple(fast_render) if fast_render else None
         self.chunk = max(chunk, 16)     # rays (or exact-solar points) per
         #                                 dispatch; output is chunk-invariant
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.replicas = [(self.model, self.device)]     # (model, device)
+        if self.mesh is not None:
+            n, home = self.mesh.size, self.device
+            self.chunk = -(-self.chunk // n) * n
+            self.device = self.mesh.devices[0]
+            self.replicas = [
+                (self.model if i == 0 and dev == home
+                 else copy.deepcopy(self.model).to(dev), dev)
+                for i, dev in enumerate(self.mesh.devices)]
+            for replica, _ in self.replicas:
+                replica.G_NeRF_net.fused()      # fold once, on its device
         self.classic_solar = classic_solar
         self.sun_frame = sun_frame
         # a model trained on HSLuv targets renders in that space: rendered
         # colors are converted back to sRGB
         self.use_hsluv = use_hsluv
 
-    def _put(self, arr) -> torch.Tensor:
+    def _put(self, arr, device=None) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
-            self.device)
+            device or self.device)
+
+    def _parts(self, lo: int, hi: int):
+        """The rows [lo, hi) of a chunk split over the replicas -> (model,
+        device, rows) for each non-empty part, in order."""
+        n = len(self.replicas)
+        per = -(-(hi - lo) // n)
+        for i, (model, dev) in enumerate(self.replicas):
+            a, b = lo + i * per, min(hi, lo + (i + 1) * per)
+            if a < b:
+                yield model, dev, slice(a, b)
 
     # -- per-chunk programs --------------------------------------------------
-    def _full_chunk(self, tops, bots, sun, t4, with_samples=False):
+    def _full_chunk(self, tops, bots, sun, t4, with_samples=False,
+                    model=None):
+        model = model or self.model
         if self.fast_render is not None:
             nc, nf = self.fast_render
             return render_chunk_outputs_fast(
-                self.model, tops, bots, sun, t4, n_coarse=nc, n_fine=nf,
+                model, tops, bots, sun, t4, n_coarse=nc, n_fine=nf,
                 classic_solar=self.classic_solar, with_samples=with_samples)
-        return render_chunk_outputs(self.model, tops, bots, sun, t4,
+        return render_chunk_outputs(model, tops, bots, sun, t4,
                                     n_samples=self.n_samples,
                                     classic_solar=self.classic_solar,
                                     with_samples=with_samples)
@@ -260,23 +295,24 @@ class Renderer:
         rendering, else ``n_samples``."""
         return self.fast_render[1] if self.fast_render else self.n_samples
 
-    def _component_chunk(self, tops, bots, sun, t4):
+    def _component_chunk(self, tops, bots, sun, t4, model=None):
         """Per-sample raw components (forward_separate), with the steps of
         samples outside the cube zeroed; under fast rendering the samples
         of each ray's surface window."""
-        R, C = tops.shape[0], self.model.n_classes
+        model = model or self.model
+        R, C = tops.shape[0], model.n_classes
         if self.fast_render is not None:
             nc, S = self.fast_render
-            t_lo, t_hi = surface_window(self.model, tops, bots, nc)
+            t_lo, t_hi = surface_window(model, tops, bots, nc)
             pts, deltas = window_points(tops, bots, t_lo, t_hi, S)
         else:
             S = self.n_samples
             pts, deltas = sample_coarse(tops, bots, S, include_end=True)
         deltas = torch.where(out_of_cube(pts)[..., None],
                              torch.zeros_like(deltas), deltas)
-        probs_r, sun_pe_r, sky_raw_r = self.model.ray_consts(sun, t4)
+        probs_r, sun_pe_r, sky_raw_r = model.ray_consts(sun, t4)
         bc = rendering.broadcast_rays
-        out = self.model.forward_separate(
+        out = model.forward_separate(
             pts.reshape(-1, 3), None, None, probs=bc(probs_r, S),
             sun_pe=bc(sun_pe_r, S), sky_raw=bc(sky_raw_r, S))
         return {
@@ -289,11 +325,12 @@ class Renderer:
             "adjust_per_class": out["adjust_per_class"].reshape(R, S, C, 3),
         }
 
-    def _exact_solar_chunk(self, pts, sun_vec):
+    def _exact_solar_chunk(self, pts, sun_vec, model=None):
         """Exact secondary-ray solar transmittance at [n, 3] points: a sun
         ray from each point to z=+1, sigma integrated over its S-1 steps
         (S = ``n_samples``, under fast rendering too), one network pass per
         step (the O(n*S) secondary points are never held at once)."""
+        model = model or self.model
         S = self.n_samples
         k = (1.0 - pts[:, 2]) / sun_vec[2]
         tops = pts + k[:, None] * sun_vec[None, :]
@@ -305,18 +342,22 @@ class Renderer:
             spts = tops * float(np.float32(1.0) - s) + pts * float(s)
             d = torch.where(out_of_cube(spts)[:, None],
                             torch.zeros_like(delta), delta)
-            tau = tau + self.model.sigma_only(spts) * d
+            tau = tau + model.sigma_only(spts) * d
         return torch.exp(-tau)[:, 0]
 
     @torch.no_grad()
     def _exact_solar_points(self, pts_flat, sun_vec):
         """Exact solar transmittance at [N, 3] flat points, ``chunk`` points
         per dispatch -> [N] numpy."""
-        sv = torch.tensor(np.asarray(sun_vec, np.float32), device=self.device)
+        sv = np.asarray(sun_vec, np.float32)
         outs = []
         for s in range(0, pts_flat.shape[0], self.chunk):
-            outs.append(self._exact_solar_chunk(
-                self._put(pts_flat[s:s + self.chunk]), sv))
+            for model, dev, rows in self._parts(
+                    s, min(s + self.chunk, pts_flat.shape[0])):
+                outs.append(self._exact_solar_chunk(
+                    self._put(pts_flat[rows], dev),
+                    torch.from_numpy(sv).to(dev), model=model).to(
+                        self.device))
             heartbeat.beat()
         return torch.cat(outs).cpu().numpy()
 
@@ -324,12 +365,13 @@ class Renderer:
     @torch.no_grad()
     def _run_chunks(self, kernel, tops, bots, sun, t4, keys):
         outs = {k: [] for k in keys}
-        for s in range(0, tops.shape[0], self.chunk):
-            sl = slice(s, s + self.chunk)
-            res = kernel(self._put(tops[sl]), self._put(bots[sl]),
-                         self._put(sun[sl]), self._put(t4[sl]))
-            for k in keys:
-                outs[k].append(res[k])
+        n = tops.shape[0]
+        for s in range(0, n, self.chunk):
+            for model, dev, rows in self._parts(s, min(s + self.chunk, n)):
+                res = kernel(*(self._put(a[rows], dev)
+                               for a in (tops, bots, sun, t4)), model=model)
+                for k in keys:
+                    outs[k].append(res[k].to(self.device))
             heartbeat.beat()
         return {k: torch.cat(v).float().cpu().numpy()
                 for k, v in outs.items()}

@@ -78,8 +78,11 @@ class RenderService:
                  fast_render: Optional[Tuple[int, int]] = None,
                  device="cuda"):
         self.model_dir = os.path.abspath(model_dir)
+        # a long-lived service on a host of several cards renders every
+        # chunk over the render mesh, as a one-shot render does
         loaded = load_model_dir(model_dir, n_samples=n_samples,
-                                fast_render=fast_render, device=device)
+                                use_mesh=True, fast_render=fast_render,
+                                device=device)
         self.cfg, self.renderer = loaded.cfg, loaded.renderer
         self.angles_to_vec, self.h_range = (loaded.angles_to_vec,
                                             loaded.h_range)

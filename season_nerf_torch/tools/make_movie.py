@@ -8,8 +8,9 @@ the season sweep) or custom keyframes:
         [--keyframe VEL,VAZ,SEL,SAZ,T ...] [--device cpu]
 
 The counterpart of ``tools/make_movie.py``, with its flags and its default
-script; the frames render on the card (K3) unless ``--device cpu``.  One
-card takes the whole frame, so there is no render mesh to ask for.
+script; the frames render on the card (K3) unless ``--device cpu``, on the
+render mesh of every visible card (or the model directory's
+``mesh_shape``), as the JAX tool loads with ``use_mesh=True``.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    loaded = load_model_dir(args.Model_Location,
+    loaded = load_model_dir(args.Model_Location, use_mesh=True,
                             fast_render=args.fast_render, device=args.device)
     if args.pose_keyframe:
         script = MovieScript()

@@ -43,10 +43,24 @@ rays) come from ``val_draws(step)``, a stream of their own
 renders scored the lowest height error against the prior.  A model trained
 on HSLuv colors (``use_HSLuv``) is validated in sRGB: its renders and the
 held-out rows are converted back before PSNR, as in the JAX package.
+
+Data parallelism (``parallel/mesh.py``): a ``Trainer`` handed a training
+rank's mesh runs the global-batch step as GSPMD does for the JAX package.
+Each rank draws the global batch's draws of ``(seed, step)`` and keeps its
+rows; BatchNorm statistics (``models/siren.py``) and batch means
+(``train/losses.py``) are over the global batch; the gradients of the
+weights and latents are summed over the ranks in one all-reduce, and every
+rank steps the same Adam.  Rank 0 alone writes (logs, events, heartbeat,
+checkpoints, ``Final_Model.nn``) and validates, while the others wait at a
+barrier; ``run`` ends by checking that every rank holds the same weights,
+statistics and latents.  :func:`_auto_mesh` decides the mesh of a config;
+the ranks are started by ``cli.run_train`` (or ``parallel.mesh.launch``
+with :func:`train_steps`).
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 import os
 import warnings
@@ -56,56 +70,61 @@ import numpy as np
 import torch
 
 from season_nerf_torch.config import Config
-from season_nerf_torch.data.dataset import DeviceRayDataset
+from season_nerf_torch.data.dataset import DeviceRayDataset, as_table
 from season_nerf_torch.data.rays import RayTable, decode_batch
+from season_nerf_torch.models.siren import SineLayer
 from season_nerf_torch.models.tnerf import TNeRF, model_from_config
 from season_nerf_torch.ops import fused_trunk, rendering, robust_loss
 from season_nerf_torch.ops.metrics import psnr as psnr_metric
 from season_nerf_torch.ops.robust_loss import AdaptiveCfg
+from season_nerf_torch.parallel.mesh import (Mesh, all_gather,
+                                             all_reduce_grads, barrier,
+                                             make_mesh, shard_batch,
+                                             visible_devices)
 from season_nerf_torch.train import phases as phase_lib
 from season_nerf_torch.train import state as state_lib
-from season_nerf_torch.train.losses import LossStatics, season_nerf_loss
+from season_nerf_torch.train.losses import (LossStatics, logged_losses,
+                                            season_nerf_loss)
 from season_nerf_torch.utils import heartbeat
 from season_nerf_torch.utils.logging import MetricWriter
 
 
-def mesh_refusal(cfg: Config, device, strict: bool = True) -> None:
-    """The JAX package's mesh decisions (``_auto_mesh``,
-    ``season_nerf_tpu/train/engine.py``) for one process on one device,
-    where the port has no mesh yet (``parallel/mesh.py`` is not ported).
+def _auto_mesh(cfg: Config, device, strict: bool = True) -> Optional[Mesh]:
+    """The data-parallel mesh of ``cfg`` on ``device``'s type, as the JAX
+    package's ``_auto_mesh`` decides it (``season_nerf_tpu/train/
+    engine.py``), or None for one device.
 
-    ``mesh_shape`` None or 1: nothing to do, the run takes ``device``.  An
-    explicit ``mesh_shape`` above 1 is never ignored.  With ``strict`` (the
-    trainer) it raises: with the JAX package's message where it exceeds
-    the visible devices, else because data-parallel training is not
-    ported.  Without (``strict=False``: the render side, where a model
-    directory's opts.json may record the slice it trained on) it warns, as
-    the JAX package's render side does, and the model renders on
-    ``device`` alone: every ray is independent, so the image is the same.
-    Visible devices: ``torch.cuda.device_count()`` on a card, 1 on the
-    CPU."""
-    if cfg.mesh_shape is None or int(cfg.mesh_shape) <= 1:
-        return
-    want = int(cfg.mesh_shape)
-    n_dev = (torch.cuda.device_count()
-             if torch.device(device).type == "cuda" else 1)
-    if want > n_dev:
+    ``mesh_shape=None`` takes every visible device (every card on
+    ``cuda``, one CPU on ``cpu``; at least the one asked for);
+    ``mesh_shape=1`` one device; the batch must divide over the mesh.
+    Never one device silently: an explicit ``mesh_shape`` that cannot be
+    honoured raises (warns and clamps with ``strict=False``: the render
+    side, where a model directory's opts.json may record a larger training
+    mesh), and the automatic one warns."""
+    n_dev = max(len(visible_devices(device)), 1)
+    explicit = cfg.mesh_shape is not None
+    want = cfg.mesh_shape if explicit else n_dev
+    want = max(1, int(want))
+    if explicit and want > n_dev:
         msg = (f"mesh_shape={cfg.mesh_shape} but only {n_dev} device(s) are "
                f"visible; lower mesh_shape or run on a larger slice")
         if strict:
             raise ValueError(msg)
-        warnings.warn(msg + f" — clamping to {n_dev}"
-                      + (", rendering on one device (the render mesh is "
-                         "not ported)" if n_dev > 1 else ""), stacklevel=2)
-        return
-    if strict:
-        raise ValueError(
-            f"mesh_shape={want}: data-parallel training over {want} "
-            f"devices is not ported to season_nerf_torch yet (the mesh of "
-            f"season_nerf_tpu/parallel/mesh.py); leave mesh_shape unset or "
-            f"set it to 1")
-    warnings.warn(f"mesh_shape={want}: the render mesh is not ported; "
-                  f"rendering on one device", stacklevel=2)
+        warnings.warn(msg + f" — clamping to {n_dev}", stacklevel=2)
+        explicit = False
+    want = min(want, n_dev)
+    if want > 1 and cfg.batch_size % want != 0:
+        msg = (f"batch_size={cfg.batch_size} is not divisible by the "
+               f"{want}-device mesh; pick a batch that is a multiple of "
+               f"{want}")
+        if explicit:
+            raise ValueError(msg)
+        warnings.warn(msg + " — FALLING BACK TO SINGLE-DEVICE TRAINING",
+                      stacklevel=2)
+        return None
+    if want <= 1:
+        return None
+    return make_mesh(n_devices=want, devices=visible_devices(device))
 
 
 def _color_cfg(init_alpha=2.0, init_scale=0.03):
@@ -221,18 +240,24 @@ class ValDraws:
                 **_fine_draws(g, self.R, self.n_importance, self.device)}
 
 
-def fused_trunk_spec(model, rows: int, device, n_importance: int = 0):
+def fused_trunk_spec(model, rows: int, device, n_importance: int = 0,
+                     mesh: Optional[Mesh] = None):
     """The ``TrunkSpec`` that ``pallas_trunk`` trains ``model``'s trunk
     with over ``rows`` points a pass, or None for the default trunk.  Where
-    ``spec_for_model`` refuses the model, or hierarchical sampling is on
+    ``spec_for_model`` refuses the model, hierarchical sampling is on
     (``n_importance`` > 0, which the JAX package's fused trunk does not
-    take either): on a CUDA device a ValueError with its reason, since the
-    default trunk (full-batch BatchNorm) is another function and would
-    hide K1/K2; on the CPU a warning and None, as the JAX package falls
-    back."""
+    take either) or the step runs on a mesh (K1/K2's ghost BatchNorm is
+    per tile of one device; the JAX package keeps them single-device too):
+    on a CUDA device a ValueError with its reason, since the default trunk
+    (full-batch BatchNorm) is another function and would hide K1/K2; on
+    the CPU a warning and None, as the JAX package falls back."""
     from season_nerf_torch.ops.fused_train import spec_for_model
     if n_importance > 0:
         spec, why = None, "hierarchical sampling (n_importance > 0)"
+    elif mesh is not None:
+        spec, why = None, ("pallas_trunk is single-device only (the "
+                           "mesh's step takes the global batch's BatchNorm "
+                           "statistics)")
     else:
         spec, why = spec_for_model(model, rows)
     if spec is None:
@@ -251,20 +276,40 @@ class Trainer:
                  sun_frame: Optional[np.ndarray] = None,
                  writer: Optional[MetricWriter] = None, device="cuda",
                  draws: Optional[Callable[[int], Dict]] = None,
-                 val_draws: Optional[Callable[[int], Dict]] = None):
+                 val_draws: Optional[Callable[[int], Dict]] = None,
+                 mesh: Optional[Mesh] = None):
+        """``mesh``: a training rank's mesh (``parallel.mesh.launch`` hands
+        each rank one), whose device must be ``device``; None decides by
+        :func:`_auto_mesh`, and a mesh of more than one device then
+        raises: its ranks are processes of their own."""
         self.cfg = cfg
         self.device = torch.device(device)
         # a model K3 cannot evaluate would train and then fail at its
         # first save point: refused before anything is built
         fused_trunk.refuse_on_card(cfg, self.device)
-        mesh_refusal(cfg, self.device)      # never one device silently
-        self.writer = writer or MetricWriter(cfg.logs_dir)
-        if cfg.logs_dir:
+        if mesh is None:
+            auto = _auto_mesh(cfg, self.device)
+            if auto is not None:
+                raise ValueError(
+                    f"the {auto.size}-device mesh trains one process per "
+                    f"device: train through cli.run_train, or start the "
+                    f"ranks with parallel.mesh.launch (or set mesh_shape=1)")
+        elif mesh.group is None or mesh.device != self.device:
+            raise ValueError("Trainer takes a training rank's mesh (from "
+                             "parallel.mesh.launch) on its own device")
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
+        self.writer = (writer or MetricWriter(cfg.logs_dir) if self.writes
+                       else MetricWriter(""))
+        if cfg.logs_dir and self.writes:
             heartbeat.set_path(os.path.join(cfg.logs_dir, "heartbeat"))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
             self.model: TNeRF = model_from_config(cfg)
         self.model.to(self.device).train()
+        for layer in self.model.modules():
+            if isinstance(layer, SineLayer):
+                layer.mesh = mesh
         self.train_ds = DeviceRayDataset(train_table, device=self.device)
         as_dev = lambda a: (None if a is None else torch.as_tensor(
             np.asarray(a), dtype=torch.float32, device=self.device))
@@ -318,7 +363,7 @@ class Trainer:
         if cfg.pallas_trunk:
             spec = fused_trunk_spec(self.model,
                                     cfg.batch_size * cfg.n_samples,
-                                    self.device, cfg.n_importance)
+                                    self.device, cfg.n_importance, self.mesh)
         return LossStatics(
             n_samples=cfg.n_samples, use_prior=use_prior,
             use_solar=cfg.Use_Solar, classic_solar=cfg.Solar_Type_2,
@@ -358,24 +403,28 @@ class Trainer:
     # --- the step -----------------------------------------------------------
     def train_step(self) -> Dict[str, torch.Tensor]:
         """One optimizer step at ``self.step`` (entering its phase when
-        needed) -> the loss values and ``Total``, on the device."""
+        needed) -> the loss values and ``Total`` of the global batch, on
+        the device."""
         phase = phase_lib.phase_at(self.phases, self.step)
         if self._phase is None or phase.index != self._phase.index:
             self._enter_phase(phase)
         d = self.draws(self.step)
+        if self.mesh is not None:
+            d = shard_batch(d, self.mesh)   # this rank's rows of the draws
         idx = (d["idx"] if self.weight_cdf is None
                else weighted_indices(self.weight_cdf, d["u"]))
         batch = self.train_ds.batch(idx)
         self.optimizers.zero_grad()
         total, losses = season_nerf_loss(
             self.model, self.ada_params, self.statics, batch, d, self.step,
-            prior_hm=self.prior_hm, sun_frame=self.sun_frame)
+            prior_hm=self.prior_hm, sun_frame=self.sun_frame, mesh=self.mesh)
         total.backward()
+        if self.mesh is not None:
+            all_reduce_grads([*self.model.parameters(), *self._ada_leaves()],
+                             self.mesh)
         self.optimizers.step(self.step - phase.start)
         self.step += 1
-        scalars = {k: v.detach() for k, (v, _) in losses.items()}
-        scalars["Total"] = total.detach()
-        return scalars
+        return logged_losses(total, losses, self.mesh)
 
     def run(self, n_steps: Optional[int] = None, log_every: int = 50):
         """Train to ``max_train_steps`` (or ``n_steps`` more), logging every
@@ -391,6 +440,23 @@ class Trainer:
                                                  scalars.items()}, done)
             if self.step in self.save_steps:
                 self._on_save_point()
+        if self.mesh is not None:
+            self.check_replicas()
+
+    def check_replicas(self):
+        """Raise unless every rank holds the same weights, running
+        statistics and latents, bit for bit (a checksum of each rank's,
+        gathered over the mesh) -> the checksums in rank order."""
+        h = hashlib.sha256()
+        for t in [*self.model.state_dict().values(), *self._ada_leaves()]:
+            h.update(np.ascontiguousarray(t.detach().cpu().numpy()).tobytes())
+        mine = int.from_bytes(h.digest()[:8], "little", signed=True)
+        sums = all_gather(torch.tensor([mine], device=self.device),
+                          self.mesh)[:, 0].tolist()
+        if len(set(sums)) > 1:
+            raise RuntimeError(f"the ranks' weights differ after step "
+                               f"{self.step}: checksums {sums}")
+        return sums
 
     # --- checkpoints ---------------------------------------------------------
     def _ckpt_extra(self):
@@ -409,7 +475,14 @@ class Trainer:
     def _on_save_point(self):
         """The ``Testing`` losses, the validation report (the images
         capped at ``save_point_val_renders`` when it is positive, none when
-        it is 0), then the checkpoint."""
+        it is 0), then the checkpoint; on a mesh by rank 0 alone, the
+        others waiting for it."""
+        if self.writes:
+            self._validate_and_save()
+        if self.mesh is not None:
+            barrier(self.mesh)
+
+    def _validate_and_save(self):
         cfg = self.cfg
         if self.val_table is not None and len(self.val_table) > 0:
             self.writer.scalars("Testing", self.eval_losses(), self.step)
@@ -453,8 +526,10 @@ class Trainer:
         ``"best_geometry_on_decay"`` that save point only where the last
         one's error exceeds it by more than ``geometry_decay_threshold``
         (relative), else the last step's.  The selection and its scores
-        go into the artifact's meta."""
+        go into the artifact's meta.  On a mesh, rank 0's work alone."""
         cfg = self.cfg
+        if not self.writes:
+            return
         sd, steps = self.model.state_dict(), self.step
         meta = {"fc_units": cfg.fc_units,
                 "n_classes": cfg.number_low_frequency_cases}
@@ -563,8 +638,9 @@ class Trainer:
         and log them, their mean masked PSNR (``Mean_PSNR``) and mean
         height errors against the ground-truth DSM
         (``Mean_Height_Error``) and against the prior
-        (``Prior_Height_Error``) under ``Testing`` -> those means."""
-        if self.val_table is None:
+        (``Prior_Height_Error``) under ``Testing`` -> those means.  On a
+        mesh, rank 0's work alone (the others return {})."""
+        if self.val_table is None or not self.writes:
             return {}
         step = step if step is not None else self.step
         n_imgs = len(self.val_table.img_names)
@@ -612,3 +688,43 @@ def _height_mae(height, dsm, table: RayTable, img_index: int):
     if not ok.any():
         return None
     return float(np.mean(np.abs(pred[ok] - ref[ok])))
+
+
+def train_steps(mesh: Optional[Mesh], cfg: Config, table, steps: int,
+                prior_hm=None, state_dict=None, ada_params=None,
+                draws: Optional[Callable[[int], Dict]] = None,
+                device="cuda") -> dict:
+    """``steps`` training steps of ``cfg`` on ``table`` (a ``RayTable`` or
+    ``data/dataset.shared_table``'s handle to one) from the config's seed,
+    or from ``state_dict`` and the Barron latents ``ada_params``
+    (``{"color": {"latent_alpha": ..., ...}}``, set at the first phase's
+    entry) -> every step's logged losses, and the weights, latents, replica
+    checksums and peak device memory at the end (tensors on the CPU).
+
+    A rank's work under ``parallel.mesh.launch`` (``mesh`` its training
+    mesh, ``device`` its device), or the same steps in one process
+    (``mesh`` None, on ``device``): the two take the same weights and the
+    same draws (``draws``, default the step-keyed :class:`StepDraws`)."""
+    dev = mesh.device if mesh is not None else torch.device(device)
+    tr = Trainer(cfg, as_table(table), prior_hm=prior_hm, device=dev,
+                 draws=draws, mesh=mesh)
+    if state_dict is not None:
+        tr.model.load_weights(state_dict)
+    tr._enter_phase(phase_lib.phase_at(tr.phases, 0))
+    with torch.no_grad():
+        for name, lat in (ada_params or {}).items():
+            for k, t in lat.items():
+                tr.ada_params[name][k].copy_(torch.as_tensor(t))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    scalars = [{k: float(v) for k, v in tr.train_step().items()}
+               for _ in range(steps)]
+    cpu = lambda t: t.detach().cpu()
+    return {"scalars": scalars,
+            "state_dict": {k: cpu(v) for k, v in
+                           tr.model.state_dict().items()},
+            "ada": {g: {k: cpu(t) for k, t in lat.items()}
+                    for g, lat in tr.ada_params.items()},
+            "checksums": tr.check_replicas() if mesh is not None else None,
+            "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else None)}

@@ -30,6 +30,14 @@ with ``n_importance`` > 0 also the camera pass's importance samples'
 solar pass takes none).  A model in eval mode (the save-point ``Testing``
 losses) samples without jitter, so its draws hold only the solar rays' and
 the importance samples' (``train/engine.ValDraws``).
+
+Under a training mesh (``mesh``, ``parallel/mesh.py``) ``batch`` and
+``draws`` are this rank's rows, and every batch mean is this rank's share
+of the global one: its sum over the global count.  The ranks' losses then
+add up to the global loss, and their gradients, summed over the ranks, to
+its gradient.  The albedo floor takes the minimum over the global batch;
+it and the latents' detached means (:data:`REPLICATED`) are the same on
+every rank.  :func:`logged_losses` gives what one process would log.
 """
 
 from __future__ import annotations
@@ -41,6 +49,12 @@ import torch
 from season_nerf_torch.models.tnerf import supervised_sigma
 from season_nerf_torch.ops import rendering, robust_loss
 from season_nerf_torch.ops.robust_loss import AdaptiveCfg
+from season_nerf_torch.parallel.mesh import all_reduce_sum, global_amin
+
+# the entries every rank of a mesh computes whole; every other entry is a
+# rank's share of a batch mean
+REPLICATED = frozenset({"Color_alpha", "Color_width", "Alpha_alpha",
+                        "Alpha_width", "Albedo_Color"})
 
 
 class LossStatics(NamedTuple):
@@ -79,13 +93,22 @@ def make_solar_rays(az, el, xy, t_ang, sun_frame=None):
     return starts, ends, v, t4
 
 
+def _batch_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``x`` over the global batch: under a mesh this rank's
+    share of it (its sum over the global count)."""
+    if mesh is None:
+        return torch.mean(x)
+    return torch.sum(x) / (x.numel() * mesh.size)
+
+
 def season_nerf_loss(model, ada_params, statics: LossStatics, batch, draws,
-                     step: int, prior_hm=None, sun_frame=None):
+                     step: int, prior_hm=None, sun_frame=None, mesh=None):
     """-> (total, {name: (value, weight)}).  ``model`` in training mode
     updates its BatchNorm running statistics in place: the camera pass
     first, then the solar pass from there, as the JAX package composes
     them."""
     s = statics
+    mean = lambda x: _batch_mean(x, mesh)
     model_trust = min(step / s.phase_len, 1.0) if s.use_prior else 1.0
     prior = prior_hm if s.use_prior else None
     spec = s.trunk_spec if model.training else None
@@ -113,18 +136,20 @@ def season_nerf_loss(model, ada_params, statics: LossStatics, batch, draws,
             model_trust=model_trust, trunk_spec=spec)
         vis_s = sol["vis"][..., 0]
         pv_exact = sol["pv_exact"][..., 0].detach()
-        solar_err = torch.mean(torch.sum((vis_s - pv_exact) ** 2, dim=1))
-        absorb = torch.mean(1.0 - torch.sum(
+        solar_err = mean(torch.sum((vis_s - pv_exact) ** 2, dim=1))
+        absorb = mean(1.0 - torch.sum(
             sol["pe"][..., 0].detach() * pv_exact * vis_s, dim=1))
         losses["Solar_Correction"] = (solar_err, sc_w)
         losses["Solar_Correction_2"] = (
             absorb if s.classic_solar else absorb.detach(), sc_w)
         if not s.classic_solar:
-            alb_min = torch.amin(out["albedo"], dim=0)
+            ranks = mesh.size if mesh is not None else 1
+            alb_min = global_amin(out["albedo"], mesh)
             viol = torch.clamp(1.0 - alb_min / 0.2, min=0.0)
-            alb_floor = torch.sum(viol ** 2) / out["albedo"].shape[0]
+            alb_floor = torch.sum(viol ** 2) / (out["albedo"].shape[0] * ranks)
             sk = (out["sky"] - 0.5) / 0.5
-            sk_loss = torch.sum(torch.clamp(sk, min=0.0) ** 2) / sk.numel()
+            sk_loss = torch.sum(torch.clamp(sk, min=0.0) ** 2) / (
+                sk.numel() * ranks)
             if s.use_prior:
                 sk_loss = sk_loss.detach()
             losses["Sky_Color_Var"] = (sk_loss, sc_w)
@@ -133,16 +158,16 @@ def season_nerf_loss(model, ada_params, statics: LossStatics, batch, draws,
     rendered_for_mse = (out["rendered_merged"]
                         if (s.use_prior and model.training)
                         else out["rendered"])
-    mse_color = torch.mean((rendered_for_mse - gt) ** 2)
+    mse_color = mean((rendered_for_mse - gt) ** 2)
 
     if s.use_mse_loss:
         losses["Color"] = (mse_color, 1.0)
         if s.use_prior:
             losses["Alpha_Adjust"] = (
-                torch.mean((out["pe"] - out["pe_sup"].detach()) ** 2), 1.0)
+                mean((out["pe"] - out["pe_sup"].detach()) ** 2), 1.0)
     else:
         c_cfg = s.color_cfg
-        color_ada = torch.mean(robust_loss.adaptive_nll(
+        color_ada = mean(robust_loss.adaptive_nll(
             ada_params["color"], c_cfg, out["rendered"] - gt))
         scale_mean = torch.mean(
             robust_loss.scale_of(ada_params["color"], c_cfg)).detach()
@@ -159,11 +184,10 @@ def season_nerf_loss(model, ada_params, statics: LossStatics, batch, draws,
         if s.use_prior:
             a_cfg = s.alpha_cfg
             pe_sup = out["pe_sup"].detach()
-            losses["Alpha_Adjust_ada"] = (torch.mean(robust_loss.adaptive_nll(
+            losses["Alpha_Adjust_ada"] = (mean(robust_loss.adaptive_nll(
                 ada_params["alpha"], a_cfg,
                 (out["pe"] - pe_sup).reshape(-1, 1))), 1.0)
-            losses["Alpha_Adjust"] = (
-                torch.mean((out["pe"] - pe_sup) ** 2), 1.0)
+            losses["Alpha_Adjust"] = (mean((out["pe"] - pe_sup) ** 2), 1.0)
             losses["Alpha_alpha"] = (torch.mean(robust_loss.alpha_of(
                 ada_params["alpha"], a_cfg)).detach(), 1.0)
             losses["Alpha_width"] = (torch.mean(robust_loss.scale_of(
@@ -178,9 +202,9 @@ def season_nerf_loss(model, ada_params, statics: LossStatics, batch, draws,
         span = max(s.phase_len - s.phase_start, 1)
         w = s.prior_keepalive * min(max((s.phase_len - step) / span, 0.0),
                                     1.0)
-        mse_pe = torch.mean((out["pe"] - pe_sup) ** 2)
+        mse_pe = mean((out["pe"] - pe_sup) ** 2)
         if s.alpha_cfg is not None and not s.use_mse_loss:
-            losses["Alpha_Adjust_ada"] = (torch.mean(robust_loss.adaptive_nll(
+            losses["Alpha_Adjust_ada"] = (mean(robust_loss.adaptive_nll(
                 ada_params["alpha"], s.alpha_cfg,
                 (out["pe"] - pe_sup).reshape(-1, 1))), w)
             losses["Alpha_Adjust"] = (mse_pe.detach(), 1.0)
@@ -189,3 +213,20 @@ def season_nerf_loss(model, ada_params, statics: LossStatics, batch, draws,
 
     total = sum(v * w for v, w in losses.values())
     return total, losses
+
+
+def logged_losses(total, losses, mesh=None) -> Dict[str, torch.Tensor]:
+    """The values a step logs: every loss and ``Total``, detached.  Under
+    a mesh the shares are summed over the ranks (one all-reduce) and
+    ``Total`` is formed again from the sums, so every rank holds what one
+    process on the global batch logs."""
+    out = {k: v.detach() for k, (v, _) in losses.items()}
+    if mesh is None:
+        out["Total"] = total.detach()
+        return out
+    shares = [k for k in out if k not in REPLICATED]
+    if shares:
+        summed = all_reduce_sum(torch.stack([out[k] for k in shares]), mesh)
+        out.update(zip(shares, summed.unbind()))
+    out["Total"] = sum(out[k] * w for k, (_, w) in losses.items())
+    return out

@@ -14,7 +14,10 @@ K3 above the flagship's shapes (widths 640-1024, 11 and 17 layers), wide
 models' frames, a converted reference checkpoint's frame and a movie on
 the card against the CPU; K3 called as the operator
 ``season_nerf::trunk_apply``, and render programs exported on the card,
-loaded back and held against the live chunk.
+loaded back and held against the live chunk; the data-parallel mesh on the
+one card: a render mesh of two replicas against one device, and training
+steps over NCCL at world size 1 and on two gloo ranks sharing the card
+against the no-mesh steps.
 
 Every test here needs a CUDA card and skips without one.  Run them on a
 machine with an H100, from the repository root:
@@ -924,3 +927,59 @@ def test_pairwise_metrics_on_the_card_match_the_cpu(cuda):
         np.testing.assert_allclose(card[diag], cpu[diag], rtol=1e-6,
                                    atol=1e-3 if name == "sam" else 1e-4,
                                    err_msg=name)
+
+
+# --- the data-parallel mesh on the one card ----------------------------------
+@pytest.mark.parametrize("fast", [None, (8, 8)], ids=["exact", "fast"])
+def test_render_mesh_of_two_replicas_on_the_card_matches_one_device(cuda,
+                                                                    fast):
+    """``make_mesh(devices=[card, card])``: two replicas on the one card,
+    K3 launched on each for its half of every chunk (twice a chunk, four
+    times fast), the frame held against the one-device renderer at
+    RENDER_TOL (bf16 heads through cuBLAS at another row count may round
+    elsewhere)."""
+    from season_nerf_torch.parallel.mesh import make_mesh
+    from season_nerf_torch.render.renderer import Renderer
+    cfg = Config(fc_units=256, n_samples=16, chunk=1000)
+    model = make_model(cfg).to(cuda)
+    kw = dict(n_samples=16, chunk=1000, fast_render=fast)
+    one = Renderer(model, **kw)
+    two = Renderer(model, mesh=make_mesh(devices=[cuda, cuda]), **kw)
+    args = ((70.0, 30.0), (45.0, 180.0), 0.5, 48)
+    before = ft.trunk_apply.launches
+    got = two.render_img(*args)
+    chunks = -(-48 * 48 // two.chunk)
+    assert ft.trunk_apply.launches - before == 2 * chunks * (2 if fast
+                                                              else 1)
+    want = one.render_img(*args)
+    for k in ("Col_Img", "Shadow_Mask", "Height"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=RENDER_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("ranks,backend", [(1, "nccl"), (2, "gloo")])
+def test_mesh_step_on_the_card_matches_the_no_mesh_step(cuda, ranks,
+                                                        backend):
+    """3 bf16 default-trunk steps on a training mesh of the card, over
+    NCCL at world size 1 and on two gloo ranks sharing the card, against
+    the same steps with no mesh from the same weights and draws, at
+    ``chip_smoke.mesh_steps_against``'s tolerances."""
+    from chip_smoke import MESH_STEPS, flagship_train_config, \
+        mesh_steps_against
+    from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
+    from season_nerf_torch.parallel.mesh import (backend_for, launch,
+                                                 make_mesh)
+    from season_nerf_torch.train.engine import train_steps
+    scene = make_scene(n_views=3, img_size=24, grid=32, seed=1)
+    table, _ = scene_ray_tables(scene, testing_size=1)
+    cfg = flagship_train_config(pallas_trunk=False, fc_units=256,
+                                batch_size=256, n_samples=32)
+    ref = train_steps(None, cfg, table, MESH_STEPS, scene.prior_hm,
+                      device=cuda)
+    torch.cuda.empty_cache()
+    mesh = make_mesh(devices=[cuda] * ranks)
+    assert backend_for(mesh) == backend
+    run = launch(train_steps, mesh, cfg, table, MESH_STEPS, scene.prior_hm)
+    assert len(run) == ranks
+    mesh_steps_against(ref, run[0], backend)
+    assert all(r["checksums"] == run[0]["checksums"] for r in run)

@@ -5,7 +5,8 @@ tensorboard; scipy is inside it: the port calls it where the JAX package
 does).  Checked statically over every source file, then on the CPU in a
 fresh interpreter in which importing any of them raises: by rendering (the
 uniform and the depth-guided fast render), by training two steps (and two
-with hierarchical sampling), by evaluating a model into ``Analysis.pickle``
+with hierarchical sampling, and two on 2 gloo ranks, the blocker standing
+in each rank's process too), by evaluating a model into ``Analysis.pickle``
 and ``Output/``, by ``cli.eval_region`` (``run_test`` with ``eval_only``,
 ``regional_eval`` into ``Detailed_Output/``, ``multi_region_merge`` into
 ``Full_Summary/``), and by the tools: a reference checkpoint converted, a
@@ -147,6 +148,36 @@ TRAIN_SCRIPT = BLOCK + textwrap.dedent("""
 """)
 
 
+# run from a file: the ranks the launcher spawns run the main file again
+# (as ``__mp_main__``), so the blocker stands in them too
+MESH_SCRIPT = BLOCK + textwrap.dedent("""
+    def main():
+        from season_nerf_torch.config import Config
+        from season_nerf_torch.data.synthetic import (make_scene,
+                                                      scene_ray_tables)
+        from season_nerf_torch.parallel.mesh import launch, make_mesh
+        from season_nerf_torch.train.engine import train_steps
+
+        scene = make_scene(n_views=3, img_size=16, grid=16, seed=0)
+        table, _ = scene_ray_tables(scene, testing_size=1)
+        cfg = Config(fc_units=32, batch_size=16, n_samples=8,
+                     max_train_steps=10, compute_dtype="float32")
+        ranks = launch(train_steps, make_mesh(devices=["cpu", "cpu"]), cfg,
+                       table, 2, scene.prior_hm)
+        assert len(ranks) == 2
+        assert ranks[0]["checksums"] == ranks[1]["checksums"]
+        assert all(np.isfinite(v) for r in ranks for s in r["scalars"]
+                   for v in s.values())
+        loaded = sorted(k for k in sys.modules if k.split(".")[0] in BANNED)
+        assert not loaded, loaded
+        print("MESH TRAINED")
+
+
+    if __name__ == "__main__":
+        main()
+""")
+
+
 ANALYSIS_SCRIPT = BLOCK + textwrap.dedent("""
     from season_nerf_torch.config import Config
     from season_nerf_torch.data.synthetic import make_scene
@@ -280,10 +311,11 @@ RUN_TOOLS_SCRIPT = BLOCK + textwrap.dedent("""
 """)
 
 
-def _run_blocked(script, word):
+def _run_blocked(script, word, path=None):
     env = dict(os.environ, OMP_NUM_THREADS="1")
+    run = [str(path)] if path is not None else ["-c", script]
     res = subprocess.run(
-        [sys.executable, "-I", "-c", script, str(ROOT), ",".join(BANNED)],
+        [sys.executable, "-I", *run, str(ROOT), ",".join(BANNED)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.strip().endswith(word)
@@ -295,6 +327,14 @@ def test_port_renders_with_jax_and_the_jax_package_blocked():
 
 def test_port_trains_with_jax_and_the_jax_package_blocked():
     _run_blocked(TRAIN_SCRIPT, "TRAINED")
+
+
+def test_port_trains_on_two_gloo_ranks_with_jax_blocked(tmp_path):
+    """Two steps on 2 gloo ranks on the CPU (``parallel.mesh.launch``),
+    the blocker in every rank; ~10 s on one worker."""
+    path = tmp_path / "mesh_blocked.py"
+    path.write_text(MESH_SCRIPT)
+    _run_blocked(MESH_SCRIPT, "MESH TRAINED", path=path)
 
 
 def test_port_evaluates_with_jax_and_the_jax_package_blocked():

@@ -20,6 +20,10 @@ package's (``tools/``), on the same inputs.
   CPU; ``bench_serving_concurrent`` at 1 and 2 clients on the CPU (the JAX
   tool's JSON keys, and ``max_s``).
 - ``run_flagship.sh``: the command it runs, with a stand-in ``python``.
+- ``multidevice_equality``: the JAX tool's arm configs and report table,
+  its two arms (1 device, then 8) through ``run_test`` recorded and their
+  tables fabricated; the CPU arm takes a mesh of gloo ranks (a mesh run
+  through ``cli.run_train`` is ``tests/test_torch_mesh_guard.py``'s).
 
 About 45 s on one worker (``run_regions``' training and evaluation
 ~20 s, the serving tools ~10 s)."""
@@ -41,9 +45,10 @@ from season_nerf_torch import cli as t_cli
 from season_nerf_torch.config import Config as TConfig
 from season_nerf_torch.models.tnerf import model_from_config
 from season_nerf_torch.tools import (bench_serving_concurrent,
-                                     fast_sine_parity, quality_report,
-                                     report_metrics, run_regions,
-                                     serve_render, time_to_quality)
+                                     fast_sine_parity, multidevice_equality,
+                                     quality_report, report_metrics,
+                                     run_regions, serve_render,
+                                     time_to_quality)
 from season_nerf_torch.train.state import save_model_artifact
 
 torch.set_num_threads(1)
@@ -358,3 +363,51 @@ def test_bench_serving_concurrent_on_the_cpu(model_dir, tmp_path):
         assert row["frames_per_s"] > 0
         assert row["rays_per_s"] == pytest.approx(row["frames_per_s"] * 64,
                                                   rel=1e-3)
+
+
+def test_multidevice_equality_arms_and_report_equal_jax(tmp_path,
+                                                        monkeypatch, capsys):
+    """Both tools with ``run_test`` recorded and each arm's tables
+    fabricated (the 8-device arm's scores apart from the 1-device arm's):
+    the same arm configs and the same report table; the port's CPU arm
+    trains on a mesh of 8 CPU ranks, its 1-device arm on none."""
+    import season_nerf_tpu.cli as j_cli
+    scores = {1: (18.01, 1.18), 8: (17.93, 1.21)}
+
+    def recorder(seen):
+        def run_test(cfg, eval_img_size=None, eval_season_size=None,
+                     device=None, mesh=None):
+            n = int(cfg.mesh_shape)
+            seen.append((cfg, eval_img_size, eval_season_size, device, mesh))
+            tables = Path(cfg.logs_dir + "_tables")
+            _fabricated_run(tables, *scores[n])
+            for sub in ("Output", "Detailed_Output"):
+                os.replace(str(tables / sub),
+                           os.path.join(cfg.logs_dir, sub))
+        return run_test
+
+    argv = ["--steps", "12", "--batch", "64", "--n_samples", "8", "--fc",
+            "32", "--eval_size", "16"]
+    j_seen, t_seen = [], []
+    monkeypatch.setattr(j_cli, "run_test", recorder(j_seen))
+    want = _run_main(_jax_tool("multidevice_equality"),
+                     argv + ["--io", str(tmp_path / "jax")], monkeypatch,
+                     capsys)
+    monkeypatch.setattr(t_cli, "run_test", recorder(t_seen))
+    multidevice_equality.main(argv + ["--io", str(tmp_path / "torch"),
+                                      "--n_devices", "8", "--device", "cpu"])
+    got = capsys.readouterr().out
+    table = lambda text: [ln for ln in text.splitlines()
+                          if ln.startswith("| ") and "wall" not in ln]
+    assert table(got) == table(want) and len(table(got)) == 5
+    assert [c.mesh_shape for c, *_ in t_seen] == [1, 8]
+    for (jc, *jrest), (tc, *trest) in zip(j_seen, t_seen):
+        for k in ("exp_name", "site_name", "max_train_steps", "batch_size",
+                  "n_samples", "fc_units", "n_saves", "testing_size",
+                  "synth_views", "seed", "mesh_shape",
+                  "save_point_val_renders"):
+            assert getattr(tc, k) == getattr(jc, k), k
+        assert trest[:2] == [tuple(x) for x in jrest[:2]]
+    assert t_seen[0][3:] == ("cpu", None)
+    mesh = t_seen[1][4]
+    assert mesh.devices == [torch.device("cpu")] * 8
