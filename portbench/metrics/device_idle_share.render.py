@@ -1,0 +1,7 @@
+"""1 - device busy over wall, over the traced window of frames."""
+
+from portbench.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)

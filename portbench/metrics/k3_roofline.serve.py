@@ -1,0 +1,8 @@
+"""K3's share of its roofline over the frames served in the window
+(``counts/k3.py``, one launch a render chunk)."""
+
+from portbench.readers import k3_roofline
+
+
+def read(run):
+    return k3_roofline(run)

@@ -1,0 +1,61 @@
+"""What the per-layer readers share: names of the hand-written kernels in
+the profiler's trace, and the arithmetic over a run's trace and work.
+Each reader returns None where its run has nothing for it to read."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from portbench.counts import frame, k3, peaks
+
+K3_MARKS = ("trunk_bf16", "trunk_f32")
+K12_MARKS = ("tt::",)
+
+
+def named(marks):
+    return lambda n: any(m in n.lower() for m in marks)
+
+
+def other(n: str) -> bool:
+    """Neither K1/K2 nor K3: the plain-PyTorch passes (elementwise,
+    copies, cuBLAS, reductions)."""
+    return not named(K3_MARKS + K12_MARKS)(n)
+
+
+def idle_share(run):
+    tr = run.trace
+    if tr is None or tr.window_s <= 0 or tr.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
+
+
+def k3_roofline(run):
+    """Sum of each K3 launch's bound over the K3 kernels' device time."""
+    tr, c = run.trace, run.config
+    if tr is None:
+        return None
+    t = tr.device_s(named(K3_MARKS))
+    if t <= 0 or not run.work.get("frames"):
+        return None
+    bound = sum(k3.launch_bound_s(c, pts) for rays in run.work["frames"]
+                for pts in k3.frame_launches(c, rays))
+    return 100.0 * bound / t
+
+
+def frame_mfu(run, seconds: float):
+    """Model operations of the run's frames over ``seconds`` at the
+    compute dtype's peak."""
+    c = run.config
+    if run.trace is None or run.trace.busy_s <= 0 or seconds <= 0 \
+            or not run.work.get("frames"):
+        return None
+    ops = sum(frame.frame_flops(c, rays) for rays in run.work["frames"])
+    return 100.0 * ops / (seconds * peaks.FLOPS[c["compute_dtype"]])
+
+
+def span_seconds(run) -> float:
+    return sum(b - a for a, b in run.work.get("render_spans", []))
+
+
+def p90(values):
+    return float(np.percentile(values, 90)) if len(values) else None

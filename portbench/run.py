@@ -1,0 +1,217 @@
+"""Run one cell of the port's benchmark once, on the card it starts on.
+
+    python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> \
+        --trace <0|1>
+
+``BENCHMARK.json`` names the cell; its configuration, traffic mix,
+limits and per-layer readers are files found by name (``bench.py``).
+Set-up (process start to the first timed call) makes every input from
+the seed, builds the program's objects and warms each shape the window
+uses; the window then runs for ``--seconds``.  With ``--trace 1`` the
+window runs under ``torch.profiler`` and the line carries the per-layer
+metrics, the device's busy seconds and a breakdown; with ``--trace 0`` the
+end-to-end metrics.  After the window the program's state is freed and
+the plain reference (``reference/``) judges what the timed path produced;
+each number compared is printed beside its limit, last on standard error
+and last in the result's line, which is the last line of standard output.
+
+Exits with another code than 0, printing no result, without a card (or
+with fewer than the cell asks for), without the program beside this
+folder, or when the process holds ``jax``, ``jaxlib``, ``flax`` or the
+JAX package once the window has closed.
+"""
+
+from __future__ import annotations
+
+import time
+
+T0 = time.perf_counter()
+
+import argparse  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import shutil  # noqa: E402
+import sys  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from portbench import bench, trace  # noqa: E402
+
+# the compile caches any library may keep, at fixed places in the
+# checkout (the port keeps its own libraries under build/season_nerf_torch)
+CACHES = {"TRITON_CACHE_DIR": "triton", "TORCH_EXTENSIONS_DIR": "extensions",
+          "CUDA_CACHE_PATH": "nv"}
+
+
+def process_age() -> float:
+    """Seconds since this process started (from /proc), or since this
+    module was loaded where /proc cannot say."""
+    try:
+        with open("/proc/self/stat") as f:
+            start = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            up = float(f.read().split()[0])
+        return up - start / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return time.perf_counter() - T0
+
+
+class Run:
+    """One run of one cell: its definitions, its seed and what its kind
+    of traffic records."""
+
+    def __init__(self, cell: bench.Cell, seed: int, seconds: float,
+                 device, faults=None, age=process_age):
+        self.cell, self.seed, self.seconds = cell, seed, seconds
+        self.age, self.marks = age, []
+        self.config, self.traffic = cell.config, cell.traffic
+        self.device = device
+        self.faults = faults or {}
+        self.spans = trace.Spans()
+        self.end_to_end, self.work = {}, {}
+        self.attempted = self.failed = 0
+        self.program = self.trace = None
+        self.cleanup, self.children, self.stops = [], [], []
+
+    def mark(self, name: str):
+        """Note the process's age as set-up reaches ``name``."""
+        self.marks.append((name, self.age()))
+
+    def close(self):
+        for stop in self.stops:
+            stop()
+        for child in self.children:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+        for d in self.cleanup:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def import_program():
+    """The port from this checkout, or an ImportError."""
+    import season_nerf_torch
+    where = os.path.dirname(os.path.abspath(season_nerf_torch.__file__))
+    if where != os.path.join(ROOT, "season_nerf_torch"):
+        raise ImportError(f"season_nerf_torch comes from {where}, not "
+                          f"from {ROOT}")
+
+
+def guard():
+    found = bench.banned_modules(list(sys.modules))
+    if found:
+        raise RuntimeError(f"the process holds {found}")
+
+
+def execute(name: str, seed: int, seconds: float, traced: bool,
+            device="cuda", modes=("program",), faults=None,
+            overrides=None, age=process_age) -> dict:
+    """One run of the cell ``name`` -> the result's dict, judged on the
+    first of ``modes``: "program", or "control" (the reference at the
+    precision below the configuration's in the program's place); every
+    mode's numbers go under "readings".  ``faults`` and ``overrides``
+    (keys of the configuration and of the mix) serve the tests."""
+    import torch
+    cell = bench.cell(name)
+    for key, part in (overrides or {}).items():
+        getattr(cell, key).update(part)
+    kind = bench.kind(cell.traffic)
+    dev = torch.device(device)
+    run = Run(cell, seed, seconds, dev, faults, age)
+    try:
+        import_program()
+        run.mark("program imported")
+        kind.setup(run)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        setup_s = age()
+        print("set-up: " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                     run.marks + [("warm", setup_s)]),
+              file=sys.stderr)
+        holder = {}
+        with trace.traced(traced, holder):
+            kind.window(run)
+        guard()
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+        metrics = {}
+        if traced:
+            run.trace = holder["read"](*run.window_span)
+            for m in cell.per_layer:
+                v = bench.reader(m["name"]).read(run)
+                if v is not None:
+                    metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+        else:
+            for m in cell.end_to_end:
+                if m["name"] in run.end_to_end:
+                    v, unit = run.end_to_end[m["name"]]
+                    metrics[m["name"]] = {"value": v, "unit": unit}
+            metrics["setup_s"] = {"value": setup_s, "unit": "s"}
+        kind.release(run)
+        readings = kind.check(run, modes)
+        numbers = readings[modes[0]]
+    finally:
+        run.close()
+    checks = {k: {"value": v, "limit": cell.limits[k]}
+              for k, v in numbers.items() if k in cell.limits}
+    correct = (run.failed == 0 and bool(checks)
+               and all(c["value"] <= c["limit"] for c in checks.values()))
+    result = {"correct": correct, "attempted": run.attempted,
+              "failed": run.failed, "metrics": metrics,
+              "device": device_info(dev, cell.chips, peak, run.trace)}
+    if run.trace is not None:
+        result["breakdown"] = run.trace.breakdown(run.spans)
+    result["readings"] = numbers if len(modes) == 1 else readings
+    result["checks"] = checks
+    return result
+
+
+def device_info(dev, chips: int, peak: int, tr) -> dict:
+    import torch
+    info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
+            "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu"),
+            "count": chips, "memory_peak_bytes": int(peak)}
+    if tr is not None:
+        info["busy_s"], info["window_s"] = tr.busy_s, tr.window_s
+    return info
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--seconds", type=float, required=True)
+    p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = p.parse_args(argv)
+    cell = bench.cell(args.workload)
+    for var, sub in CACHES.items():
+        os.environ[var] = os.path.join(ROOT, "build", "portbench", sub)
+    import torch
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < cell.chips:
+        print(f"portbench: the cell needs {cell.chips} CUDA card(s); "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 2
+    print(f"portbench: {args.workload} on {torch.cuda.get_device_name(0)}",
+          file=sys.stderr)
+    result = execute(args.workload, args.seed, args.seconds,
+                     bool(args.trace))
+    found = bench.banned_modules(list(sys.modules))
+    if found:
+        print(f"portbench: the process holds {found}", file=sys.stderr)
+        return 3
+    for k, v in result["readings"].items():
+        print(f"reading {k}: {v!r}", file=sys.stderr)
+    for k, c in result["checks"].items():
+        print(f"check {k}: {c['value']!r} limit {c['limit']!r}",
+              file=sys.stderr)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
