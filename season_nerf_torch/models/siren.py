@@ -16,6 +16,10 @@ variance and flax's momentum 0.99 (``running = 0.99 running + 0.01
 batch``); ``BatchNorm1d``'s own update, which uses the unbiased variance,
 never runs.  The sine's gradient is the cosine (``ops/fast_math``).
 
+The layer's BatchNorm forward is the span ``siren.batchnorm`` and its sine
+``siren.sine`` (``utils/trace``); autograd's backward of the BatchNorm
+lies in neither.
+
 Under a training mesh (``parallel/mesh.py``; the trainer sets the layer's
 ``mesh``) the statistics are those of the global batch, as GSPMD computes
 them for the JAX package: one all-reduce of ``[sum z, sum z^2, rows]``,
@@ -32,6 +36,7 @@ from torch import nn
 
 from season_nerf_torch.ops.fast_math import fast_sin
 from season_nerf_torch.parallel.mesh import all_reduce_sum
+from season_nerf_torch.utils import trace
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99      # flax's; torch's BatchNorm1d momentum 0.01
@@ -116,6 +121,8 @@ class SineLayer(nn.Module):
         z = self.omega_0 * self.linear(x, extra, self.dtype)
         z = z.float()
         if self.norm is not None:
-            z = self.bn_train(z) if self.training else self.bn_eval(z)
-        y = fast_sin(z) if self.fast_sine else torch.sin(z)
+            with trace.span("siren.batchnorm"):
+                z = self.bn_train(z) if self.training else self.bn_eval(z)
+        with trace.span("siren.sine"):
+            y = fast_sin(z) if self.fast_sine else torch.sin(z)
         return y.to(self.dtype) if self.dtype is not None else y

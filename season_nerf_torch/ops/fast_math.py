@@ -16,7 +16,8 @@ is the default.  The same arithmetic runs inside the CUDA trunk kernels
 
 As in the JAX package, the derivative of one is the other, not the autograd
 of the polynomial: d fast_sin = fast_cos, d fast_cos = -fast_sin
-(:class:`FastSin`, :class:`FastCos`).
+(:class:`FastSin`, :class:`FastCos`).  Each backward is the span
+``siren.sine`` (``utils/trace``), as the forward is in ``SineLayer``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from __future__ import annotations
 import os
 
 import torch
+
+from season_nerf_torch.utils import trace
 
 TWO_PI = 6.283185307179586
 INV_TWO_PI = 0.15915494309189535
@@ -90,7 +93,8 @@ class FastSin(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return FastCos.apply(x) * g
+        with trace.span("siren.sine"):
+            return FastCos.apply(x) * g
 
 
 class FastCos(torch.autograd.Function):
@@ -102,7 +106,8 @@ class FastCos(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return -FastSin.apply(x) * g
+        with trace.span("siren.sine"):
+            return -FastSin.apply(x) * g
 
 
 def fast_sin(x: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,9 @@ and the sums over tiles of the per-tile statistics; K2 (:func:`trunk_bwd`,
 gradient of every packed parameter.  Each wrapper runs its plain version
 (:func:`trunk_fwd_reference`, :func:`trunk_bwd_reference`) for a CPU
 tensor, launches its kernel for a CUDA tensor or raises, and counts its
-launches in ``.launches``.  :class:`TrunkTrain` joins the two as an
+launches in ``.launches`` (``utils/trace`` reads them as ``k1.launches``
+and ``k2.launches``; each launch is the span ``k1.launch`` or
+``k2.launch``).  :class:`TrunkTrain` joins the two as an
 autograd function; :func:`fused_forward` and :func:`fused_forward_solar`
 are the network forwards the training step calls with a spec.  The bf16
 GEMM inside both (TMA + ``wgmma``) is bound alone as :func:`gemm_bf16`, for
@@ -41,6 +43,7 @@ from season_nerf_torch.models.siren import BN_EPS
 from season_nerf_torch.ops import cuda_build
 from season_nerf_torch.ops.fast_math import fast_cos, fast_sin
 from season_nerf_torch.ops.fused_trunk import trunk_layers
+from season_nerf_torch.utils import trace
 
 OMEGA = 30.0
 PE_PAD = 64          # padded extended-PE width (63 -> 64)
@@ -395,7 +398,7 @@ def trunk_fwd(spec: TrunkSpec, pe: torch.Tensor,
     table = _table(spec, params, acts, [z] * spec.n_layers, mus, vars_,
                    False)
     lib = _library(FWD_KERNEL)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.span("k1.launch"):
         err = lib.trunk_train_fwd_launch(
             table.ctypes.data, spec.n_layers, pe.data_ptr(), spec.pe_dim, n,
             spec.tile, params[-2].data_ptr(), params[-1].data_ptr(),
@@ -451,7 +454,7 @@ def trunk_bwd(spec: TrunkSpec, pe: torch.Tensor,
     ws = torch.empty((ws_floats,), device=dev)
     table = _table(spec, params, acts, zs, mus, vars_, True, grads)
     lib = _library(BWD_KERNEL)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.span("k2.launch"):
         err = lib.trunk_train_bwd_launch(
             table.ctypes.data, spec.n_layers, pe.data_ptr(), spec.pe_dim, n,
             spec.tile, params[-2].data_ptr(), HEAD_PAD, d_xenc.data_ptr(),
@@ -552,11 +555,7 @@ def gemm_bf16(a: torch.Tensor, b: torch.Tensor, layout: str,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         _raise(lib, FWD_KERNEL, err, f"gemm {layout} {M}x{N}x{K}")
-    gemm_bf16.launches += 1
     return out
-
-
-gemm_bf16.launches = 0
 
 
 class TrunkTrain(torch.autograd.Function):

@@ -22,8 +22,10 @@ custom op, so that ``torch.export`` records the call and an exported
 render program reaches the same kernel): for a CPU tensor the plain
 version, :func:`trunk_apply_reference`; for a CUDA tensor a launch of
 ``csrc/trunk_infer.cu`` or an error.  ``trunk_apply.launches`` counts the
-launches.  The bf16 kernel (TMA + wgmma, clusters of two 64-row tiles)
-reads each layer's W' through a tensor map: :meth:`FoldedTrunk.launch_plan`
+launches (``utils/trace`` reads it as ``k3.launches``; each launch is
+the span ``k3.launch``).  The bf16 kernel (TMA + wgmma, clusters of two
+64-row tiles) reads each layer's W' through a tensor map:
+:meth:`FoldedTrunk.launch_plan`
 says per layer what the map covers, and :meth:`FoldedTrunk.tensor_maps`
 encodes the maps once per folded trunk (above a padded width of 512 the
 cluster's two CTAs share a tile and split its columns).  The f32 kernel
@@ -53,6 +55,7 @@ from season_nerf_torch.models.encodings import encoded_size, positional_encode
 from season_nerf_torch.models.siren import BN_EPS
 from season_nerf_torch.ops import cuda_build
 from season_nerf_torch.ops.fast_math import fast_sin
+from season_nerf_torch.utils import trace
 
 PE_FREQS = 10
 PE_DIM = encoded_size(3, PE_FREQS)      # 63
@@ -412,7 +415,8 @@ def _trunk_op_cuda(pe, weights, biases, ring, skip, width, width_pad,
     state = _launch_state(weights, biases, ring, skip, width_pad,
                           out_features, bf16)
     lib = _launcher()
-    with torch.cuda.device(pe.device):      # launch on the tensors' card
+    with torch.cuda.device(pe.device), \
+            trace.span("k3.launch"):        # launch on the tensors' card
         stream = torch.cuda.current_stream(pe.device).cuda_stream
         if bf16:
             plan, maps = state

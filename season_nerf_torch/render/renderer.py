@@ -27,6 +27,12 @@ each device holds a replica of the model (its trunk folded there), and
 every chunk's rays are split over the replicas in order, each part run on
 its device (K3 there) and the results gathered on the first.  Every ray is
 independent, so the image is the one device's.
+
+Spans (``utils/trace``): ``render.frame`` around ``render_img``, inside it
+``render.rays`` (the rays, on the host) and ``render.scatter`` (the
+images assembled on the host); ``render.chunk`` around each chunk's puts
+and dispatch and ``render.gather`` around the copy back, where the host
+waits for the device.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import torch
 
 from season_nerf_torch.ops import rendering
 from season_nerf_torch.ops.sampling import out_of_cube, sample_coarse
-from season_nerf_torch.utils import heartbeat
+from season_nerf_torch.utils import heartbeat, trace
 
 
 def encode_time(year_frac, day_frac=0.0):
@@ -367,14 +373,18 @@ class Renderer:
         outs = {k: [] for k in keys}
         n = tops.shape[0]
         for s in range(0, n, self.chunk):
-            for model, dev, rows in self._parts(s, min(s + self.chunk, n)):
-                res = kernel(*(self._put(a[rows], dev)
-                               for a in (tops, bots, sun, t4)), model=model)
-                for k in keys:
-                    outs[k].append(res[k].to(self.device))
+            with trace.span("render.chunk"):
+                parts = self._parts(s, min(s + self.chunk, n))
+                for model, dev, rows in parts:
+                    res = kernel(*(self._put(a[rows], dev)
+                                   for a in (tops, bots, sun, t4)),
+                                 model=model)
+                    for k in keys:
+                        outs[k].append(res[k].to(self.device))
             heartbeat.beat()
-        return {k: torch.cat(v).float().cpu().numpy()
-                for k, v in outs.items()}
+        with trace.span("render.gather"):   # the host waits for the device
+            return {k: torch.cat(v).float().cpu().numpy()
+                    for k, v in outs.items()}
 
     def render_rays(self, tops, bots, sun_vec, t4_row, with_samples=False):
         """Full composite render of arbitrary rays -> dict of flat arrays.
@@ -400,34 +410,39 @@ class Renderer:
         """Whole-image render -> dict with Col_Img, Shadow_Mask (gated),
         Height, PS_Sum and Mask; ``exact_shadow`` adds Exact_Shadow_Mask from
         secondary-ray transmittance."""
-        to_vec = angles_to_vec or _default_angles_to_vec(self.sun_frame)
-        view_vec = to_vec(*view_el_az)
-        sun_vec = to_vec(*sun_el_az)
-        tops, bots, img_pts = dir_grid_rays(view_vec, (out_size, out_size))
-        res = self.render_rays(tops, bots, sun_vec, encode_time(time_frac),
-                               with_samples=exact_shadow)
-        ij = (img_pts[:, 0], img_pts[:, 1])
-        col = np.zeros((out_size, out_size, 3), np.float32)
-        shadow = np.zeros((out_size, out_size), np.float32)
-        height = np.full((out_size, out_size), np.nan, np.float32)
-        ps_sum = np.zeros((out_size, out_size), np.float32)
-        mask = np.zeros((out_size, out_size), bool)
-        col[ij] = res["rendered"]
-        shadow[ij] = res["shadow_raw"]
-        height[ij] = res["height"]
-        ps_sum[ij] = res["ps_sum"]
-        mask[ij] = True
-        out = {"Col_Img": col, "Shadow_Mask": shadow, "Height": height,
-               "PS_Sum": ps_sum, "Mask": mask}
-        if exact_shadow:
-            # secondary sun rays from the same samples the composite used
-            exact = self._exact_solar_points(
-                res["pts"].reshape(-1, 3), sun_vec).reshape(
-                    -1, self._out_samples)
-            ex = np.zeros((out_size, out_size), np.float32)
-            ex[ij] = np.sum(res["ps"] * exact, 1)
-            out["Exact_Shadow_Mask"] = ex
-        return out
+        with trace.span("render.frame"):
+            to_vec = angles_to_vec or _default_angles_to_vec(self.sun_frame)
+            view_vec = to_vec(*view_el_az)
+            sun_vec = to_vec(*sun_el_az)
+            with trace.span("render.rays"):
+                tops, bots, img_pts = dir_grid_rays(view_vec,
+                                                    (out_size, out_size))
+            res = self.render_rays(tops, bots, sun_vec,
+                                   encode_time(time_frac),
+                                   with_samples=exact_shadow)
+            with trace.span("render.scatter"):
+                ij = (img_pts[:, 0], img_pts[:, 1])
+                col = np.zeros((out_size, out_size, 3), np.float32)
+                shadow = np.zeros((out_size, out_size), np.float32)
+                height = np.full((out_size, out_size), np.nan, np.float32)
+                ps_sum = np.zeros((out_size, out_size), np.float32)
+                mask = np.zeros((out_size, out_size), bool)
+                col[ij] = res["rendered"]
+                shadow[ij] = res["shadow_raw"]
+                height[ij] = res["height"]
+                ps_sum[ij] = res["ps_sum"]
+                mask[ij] = True
+            out = {"Col_Img": col, "Shadow_Mask": shadow, "Height": height,
+                   "PS_Sum": ps_sum, "Mask": mask}
+            if exact_shadow:
+                # secondary sun rays from the same samples the composite used
+                exact = self._exact_solar_points(
+                    res["pts"].reshape(-1, 3), sun_vec).reshape(
+                        -1, self._out_samples)
+                ex = np.zeros((out_size, out_size), np.float32)
+                ex[ij] = np.sum(res["ps"] * exact, 1)
+                out["Exact_Shadow_Mask"] = ex
+            return out
 
     def render_perspective(self, position, pitch_deg, yaw_deg, fov_deg,
                            out_size, sun_el_az, time_frac,

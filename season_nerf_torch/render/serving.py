@@ -16,7 +16,11 @@ model once onto the card, answer novel-view requests over plain HTTP.
   [-1, 1] cube; the ``X-DSM-Units`` header says which.
 
 One render at a time holds the device (a lock); the threaded server keeps
-health checks from queueing behind a frame.  Stdlib only: ``http.server``
+health checks from queueing behind a frame.  Spans (``utils/trace``):
+``serve.request`` from a request's handler to its response written (it
+starts the request: every span beneath it on the handler's thread carries
+its id), ``serve.lock_wait`` waiting for the lock, ``serve.render``
+holding it, ``serve.encode`` the PNG.  Stdlib only: ``http.server``
 and the port's own PNG encoder.
 
     python -m season_nerf_torch.render.serving --Model_Location DIR \
@@ -41,6 +45,7 @@ import numpy as np
 from season_nerf_torch.geometry.time_enc import year_frac_from_month_day
 from season_nerf_torch.render.loading import load_model_dir
 from season_nerf_torch.render.renderer import images_from_components
+from season_nerf_torch.utils import trace
 from season_nerf_torch.utils.png import encode_png
 
 
@@ -131,9 +136,11 @@ class RenderService:
         exact = exact_shadow and layer != "base"
         fused = (not exact) and layer in ("season", "shadow") \
             and not self.cfg.Solar_Type_2 and not self.cfg.use_HSLuv
-        with self._lock:
-            self._busy_since = time.monotonic()
-            try:
+        with trace.span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
+            with trace.span("serve.render"):
+                self._busy_since = time.monotonic()
                 if fused:
                     out = self.renderer.render_img(
                         tuple(view_el_az), tuple(sun_el_az),
@@ -146,8 +153,9 @@ class RenderService:
                         angles_to_vec=self.angles_to_vec,
                         exact_solar=exact)
                 self.renders_served += 1
-            finally:
-                self._busy_since = None
+        finally:
+            self._busy_since = None
+            self._lock.release()
         if fused:
             if layer == "shadow":
                 gate = _sig((out["Shadow_Mask"] - 0.2) * 30.0)
@@ -226,6 +234,10 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(code, json.dumps(obj).encode(), "application/json")
 
     def do_GET(self):
+        with trace.span("serve.request", request=True):
+            self._get()
+
+    def _get(self):
         url = urlparse(self.path)
         q = {k: v[-1] for k, v in parse_qs(url.query).items()}
         try:
@@ -248,7 +260,9 @@ class _Handler(BaseHTTPRequestHandler):
                     layer=q.get("layer", "season"),
                     exact_shadow=_parse_bool(q.get("exact_shadow", "0"),
                                              "exact_shadow"))
-                return self._send(200, png_bytes(img), "image/png")
+                with trace.span("serve.encode"):
+                    body = png_bytes(img)
+                return self._send(200, body, "image/png")
             if url.path == "/dsm":
                 arr, units = self.service.dsm(int(q.get("size", 256)))
                 hdr = (("X-DSM-Units", units),)

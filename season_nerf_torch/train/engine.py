@@ -56,6 +56,11 @@ barrier; ``run`` ends by checking that every rank holds the same weights,
 statistics and latents.  :func:`_auto_mesh` decides the mesh of a config;
 the ranks are started by ``cli.run_train`` (or ``parallel.mesh.launch``
 with :func:`train_steps`).
+
+Spans (``utils/trace``): ``train.step`` around :meth:`Trainer.train_step`,
+inside it ``train.draws``, ``train.gather`` (the batch's rows),
+``train.forward`` (the loss), ``train.backward`` (with the mesh's
+all-reduce) and ``train.optimizer``.
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ from season_nerf_torch.train import phases as phase_lib
 from season_nerf_torch.train import state as state_lib
 from season_nerf_torch.train.losses import (LossStatics, logged_losses,
                                             season_nerf_loss)
-from season_nerf_torch.utils import heartbeat
+from season_nerf_torch.utils import heartbeat, trace
 from season_nerf_torch.utils.logging import MetricWriter
 
 
@@ -405,26 +410,33 @@ class Trainer:
         """One optimizer step at ``self.step`` (entering its phase when
         needed) -> the loss values and ``Total`` of the global batch, on
         the device."""
-        phase = phase_lib.phase_at(self.phases, self.step)
-        if self._phase is None or phase.index != self._phase.index:
-            self._enter_phase(phase)
-        d = self.draws(self.step)
-        if self.mesh is not None:
-            d = shard_batch(d, self.mesh)   # this rank's rows of the draws
-        idx = (d["idx"] if self.weight_cdf is None
-               else weighted_indices(self.weight_cdf, d["u"]))
-        batch = self.train_ds.batch(idx)
-        self.optimizers.zero_grad()
-        total, losses = season_nerf_loss(
-            self.model, self.ada_params, self.statics, batch, d, self.step,
-            prior_hm=self.prior_hm, sun_frame=self.sun_frame, mesh=self.mesh)
-        total.backward()
-        if self.mesh is not None:
-            all_reduce_grads([*self.model.parameters(), *self._ada_leaves()],
-                             self.mesh)
-        self.optimizers.step(self.step - phase.start)
-        self.step += 1
-        return logged_losses(total, losses, self.mesh)
+        with trace.span("train.step"):
+            phase = phase_lib.phase_at(self.phases, self.step)
+            if self._phase is None or phase.index != self._phase.index:
+                self._enter_phase(phase)
+            with trace.span("train.draws"):
+                d = self.draws(self.step)
+                if self.mesh is not None:
+                    d = shard_batch(d, self.mesh)   # this rank's rows
+                idx = (d["idx"] if self.weight_cdf is None
+                       else weighted_indices(self.weight_cdf, d["u"]))
+            with trace.span("train.gather"):
+                batch = self.train_ds.batch(idx)
+            self.optimizers.zero_grad()
+            with trace.span("train.forward"):
+                total, losses = season_nerf_loss(
+                    self.model, self.ada_params, self.statics, batch, d,
+                    self.step, prior_hm=self.prior_hm,
+                    sun_frame=self.sun_frame, mesh=self.mesh)
+            with trace.span("train.backward"):
+                total.backward()
+                if self.mesh is not None:
+                    all_reduce_grads([*self.model.parameters(),
+                                      *self._ada_leaves()], self.mesh)
+            with trace.span("train.optimizer"):
+                self.optimizers.step(self.step - phase.start)
+            self.step += 1
+            return logged_losses(total, losses, self.mesh)
 
     def run(self, n_steps: Optional[int] = None, log_every: int = 50):
         """Train to ``max_train_steps`` (or ``n_steps`` more), logging every
