@@ -7,8 +7,8 @@ Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``season_nerf_torch/csrc``: K3
-   (``trunk_infer``), K1 (``trunk_train_fwd``) and K2 (``trunk_train_bwd``),
-   one ``nvcc`` per source, started together, and print what ``ptxas``
+   (``trunk_infer``), K1 (``trunk_train_fwd``), K2 (``trunk_train_bwd``)
+   and the polynomial sine (``fast_sine``), one ``nvcc`` per source, started together, and print what ``ptxas``
    reports (registers, shared memory, spills);
 3. hold each kernel against its plain PyTorch version:
    - K3 at the shapes of the flagship render chunk (width 512, fc1..fc8 +
@@ -22,6 +22,11 @@ Phases, each fatal on failure:
    - the bf16 GEMM inside K1 and K2 (TMA + wgmma) alone at the flagship's
      shapes (a 512 x 512 forward layer, the skip layer's PE half, an input
      gradient, a weight gradient) against the f32 product;
+   - the polynomial sine's kernel at one SIREN layer of a flagship step
+     (393,216 x 512, x in +-1e3), both directions, sine and cosine, f32
+     and bf16, against the plain chain of ``ops/fast_math`` within
+     SINE_TOL (a bf16 store: its own f32 value cast, bit for bit, and
+     within the two casts of the plain chain's);
    - K3's f32 kernel also at width 768 (32-row tiles), and its nine layer
      products alone as cuBLAS f32 GEMMs (``torch.matmul``, TF32 off), a
      yardstick the port never calls;
@@ -155,9 +160,11 @@ Phases, each fatal on failure:
    again), once under the profiler: seconds by part, the device's busy
    share, K3's launches against the chunking, finite scores and every
    file;
-8. print one ``{"kernels": [...]}`` line (K3, K1 and K2, their launches
-   summed over the main paths, the exported programs', the render mesh's
-   and the tools' included, K3's f32 kernel with the legacy and the converted
+8. print one ``{"kernels": [...]}`` line (K3, K1, K2 and the polynomial
+   sine, their launches summed over the main paths, the exported
+   programs', the render mesh's and the tools' included; the sine's counted
+   on each main path alone, none on the two float32 directories' and some
+   on every other, K3's f32 kernel with the legacy and the converted
    directories' and the float32 program's launches, and K3's wide bf16
    instance with the 640-wide frame's), then, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -225,6 +232,8 @@ SURFACE_N = 4096 * 48           # the quick density surface's points a call
 RAGGED_N = 4133                 # not a multiple of any tile
 FAST_RENDER = (32, 32)          # --fast_render's qualified setting
 FAST_N = 5120 * 32              # points of a fast render chunk's passes
+SINE_SHAPE = (4096 * 96, 512)   # one SIREN layer's z in a flagship step
+SINE_TOL = 2e-6                 # the sine's kernel against the plain chain
 SEED = 0
 STEADY_PATH = "/render?size=128"
 STEADY_REQUESTS = 10
@@ -1754,6 +1763,7 @@ def export_path(model, cfg, device) -> dict:
             f"{EXPORT_TOL}), K3 {rec['launches_per_call']} launch(es) a "
             f"call; chunk {rec['program_ms']:.3f} ms loaded against "
             f"{rec['live_ms']:.3f} ms live ({rec['points']} trunk points)")
+    report["fast_sine_launches"] = child["fast_sine_launches"]
     report["child_modules"] = child["modules"]
     report["launch_states"] = child["launch_states"]
     return report
@@ -1763,9 +1773,11 @@ def export_child(spec: str):
     """``--export-child``: load each program of ``spec`` with
     ``torch.export.load`` (``season_nerf_torch`` imported, nothing of its
     tools), call it on the flagship chunk, hold it against the live
-    ``Renderer._full_chunk`` of its model directory, count K3's launches a
-    call and time both; prints one JSON line."""
+    ``Renderer._full_chunk`` of its model directory, count K3's and the
+    polynomial sine's launches a call (the sine's as the live chunk's,
+    none in float32) and time both; prints one JSON line."""
     import season_nerf_torch                 # registers the operator
+    from season_nerf_torch.ops import fast_math as fm
     from season_nerf_torch.ops import fused_trunk as ft
     torch.backends.cuda.matmul.allow_tf32 = False
     with open(spec) as f:
@@ -1792,23 +1804,29 @@ def export_child(spec: str):
         call = lambda: program(*rays)
         ft.trunk_apply.launches = 0
         with torch.no_grad():
+            s0 = fm.launches
             want = live()
             torch.cuda.synchronize()
-            before = ft.trunk_apply.launches
+            before, s1 = ft.trunk_apply.launches, fm.launches
             got = call()
             torch.cuda.synchronize()
             launches = ft.trunk_apply.launches - before
+            sines = (fm.launches - s1, s1 - s0)     # program, live
             err = max(float((got[k] - want[k]).abs().max()) for k in want)
             finite = all(bool(torch.isfinite(got[k]).all()) for k in got)
             ms = [cuda_ms(f, EXPORT_REPS) for f in (live, call, call, live)]
         torch.cuda.synchronize()
         if sorted(got) != sorted(want) or not finite or err > EXPORT_TOL \
-                or launches != c["per_call"]:
+                or launches != c["per_call"] or sines[0] != sines[1] \
+                or (sines[0] > 0) != lm.cfg.fast_sine:
             fail(f"the loaded program {c['name']}: keys {sorted(got)}, "
                  f"finite {finite}, max abs difference {err:.3e}, K3 "
-                 f"launches a call {launches} (want {c['per_call']})")
+                 f"launches a call {launches} (want {c['per_call']}), the "
+                 f"sine's {sines[0]} (the live chunk's {sines[1]}, "
+                 f"fast_sine {lm.cfg.fast_sine})")
         out["cases"][c["name"]] = {
             "max_abs_err": err, "launches_per_call": launches,
+            "fast_sine_per_call": sines[0],
             "launches": ft.trunk_apply.launches,    # live and loaded
             "dtype": str(lm.model.G_NeRF_net.dtype or torch.float32)[6:],
             "points": n * (sum(c["fast_render"]) if c["fast_render"]
@@ -1816,6 +1834,7 @@ def export_child(spec: str):
             "live_ms": (ms[0] + ms[3]) / 2, "program_ms": (ms[1] + ms[2]) / 2,
             "ms_in_turn": ms}
         del lm
+    out["fast_sine_launches"] = fm.launches
     out["modules"] = sorted(m for m in sys.modules
                             if m.startswith("season_nerf_torch"))
     out["launch_states"] = len(ft._launch_states)
@@ -4191,6 +4210,74 @@ def mesh_path(model, cfg, device) -> dict:
     return report
 
 
+def check_sine(device, shape=SINE_SHAPE) -> dict:
+    """The polynomial sine's kernel (``csrc/fast_sine.cu``) at one SIREN
+    layer's activations of a flagship step, x in +-1e3: each direction
+    against the plain chain of ``ops/fast_math`` on the card within
+    SINE_TOL, timed by CUDA events beside the plain chain, with its bound
+    (the bytes it must move over the card's bandwidth).  The kernel's FMA
+    Horner chain and the plain chain's rounded passes differ by a few ulps;
+    a bf16 store is its own f32 value cast, bit for bit, and within the
+    two casts (half a bf16 step each) of the plain chain's."""
+    from season_nerf_torch.ops import fast_math as fm
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = (torch.rand(shape, generator=gen, device=device) * 2 - 1) * 1e3
+    g = torch.rand(shape, generator=gen, device=device) * 2 - 1
+    gb = g.to(torch.bfloat16)
+    n = x.numel()
+    cases = {
+        "fwd[f32]": (lambda: fm.sine_op(x, False, False), 8,
+                     lambda: fm.plain_sin(x)),
+        "fwd[bf16]": (lambda: fm.sine_op(x, False, True), 6,
+                      lambda: fm.plain_sin(x).to(torch.bfloat16)),
+        "fwd_cos[f32]": (lambda: fm.sine_op(x, True, False), 8,
+                         lambda: fm.plain_cos(x)),
+        "bwd[g f32]": (lambda: fm.sine_grad_op(x, g, False), 12,
+                       lambda: fm.plain_cos(x) * g),
+        "bwd[g bf16]": (lambda: fm.sine_grad_op(x, gb, False), 10,
+                        lambda: fm.plain_cos(x) * gb.float()),
+    }
+    out = {}
+    for name, (kernel, bytes_per, plain) in cases.items():
+        got, want = kernel(), plain()
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype == torch.bfloat16:
+            own = fm.sine_op(x, False, False).to(torch.bfloat16)
+            a, b = got.float(), want.float()
+            ok = torch.equal(got, own) and bool(
+                ((a - b).abs() <= SINE_TOL + 2.0 ** -8 * (a.abs() + b.abs()))
+                .all())
+        else:
+            ok = err <= SINE_TOL
+        if not ok:
+            fail(f"fast_sine {name} at {shape[0]} x {shape[1]}: max abs "
+                 f"err {err:.3e} against the plain chain (tol {SINE_TOL}; "
+                 f"a bf16 store: its own f32 value cast, and two casts' "
+                 f"half steps more)")
+        ms = cuda_ms(kernel, 20, warmup=2)
+        plain_ms = cuda_ms(plain, 5, warmup=1)
+        bound_ms = 1e3 * n * bytes_per / PEAK_BYTES
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "roofline": bound_ms / ms, "max_abs_err": err}
+        log(f"  fast_sine {name} at {shape[0]} x {shape[1]}: {ms:.4f} ms "
+            f"(bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f} %), "
+            f"plain chain {plain_ms:.3f} ms, max abs err {err:.3g}")
+    return out
+
+
+def with_sine_launches(run, *args, **kwargs) -> dict:
+    """``run(*args, **kwargs)``'s report with ``fast_sine_launches``: the
+    polynomial sine kernel's launches in this process while it ran,
+    counted from 0."""
+    from season_nerf_torch.ops import fast_math as fm
+    fm.launches = 0
+    report = run(*args, **kwargs)
+    report["fast_sine_launches"] = fm.launches
+    log(f"  the polynomial sine's kernel: {fm.launches} launches on this "
+        f"path")
+    return report
+
+
 def ptxas_entries(report: str, mark: str) -> dict:
     """ptxas's lines for each compiled entry whose name holds ``mark``:
     registers, shared memory, stack and spills."""
@@ -4284,8 +4371,9 @@ def main():
         export_child(args.export_child)
         return
     from season_nerf_torch.config import Config
-    from season_nerf_torch.ops import cuda_build, fused_trunk as ft
+    from season_nerf_torch.ops import cuda_build, fast_math as fm
     from season_nerf_torch.ops import fused_train as ftr
+    from season_nerf_torch.ops import fused_trunk as ft
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4307,7 +4395,7 @@ def main():
              "need it")
 
     names = [ft.KERNEL] if args.only else [ft.KERNEL, ftr.FWD_KERNEL,
-                                           ftr.BWD_KERNEL]
+                                           ftr.BWD_KERNEL, fm.KERNEL]
     t0 = time.perf_counter()
     cuda_build.build(names)
     nvcc_s = time.perf_counter() - t0
@@ -4344,6 +4432,8 @@ def main():
     train_kernels = check_train_kernels(device)
     log("the bf16 GEMM of K1 and K2 (TMA + wgmma) against the f32 product:")
     gemms = check_gemms(device)
+    log("the polynomial sine's kernel against the plain chain:")
+    sine = check_sine(device)
 
     log(f"K3, K1 and K2 at FAST_SIN_DEGREE "
         f"{' and '.join(map(str, DEGREES))}, one child process each:")
@@ -4358,23 +4448,24 @@ def main():
             f" s")
 
     log("main path: HTTP serving at full width")
-    serving = main_path(model.cpu(), cfg, device)
+    serving = with_sine_launches(main_path, model.cpu(), cfg, device)
 
     log(f"main path: HTTP serving at full width with fast_render "
         f"{FAST_RENDER}")
-    fast = fast_render_path(model, cfg, device, serving["latency"])
+    fast = with_sine_launches(fast_render_path, model, cfg, device,
+                              serving["latency"])
 
     log("main path: HTTP serving a legacy model directory (float32, sinf: "
         "K3's f32 kernel)")
-    legacy = legacy_f32_path(model, cfg, device)
+    legacy = with_sine_launches(legacy_f32_path, model, cfg, device)
 
     log("main path: a reference checkpoint converted by "
         "tools/convert_reference_model and served (K3's f32 kernel)")
-    reference = reference_path(cfg, device)
+    reference = with_sine_launches(reference_path, cfg, device)
 
     log(f"main path: tools/make_movie on the render cell's model "
         f"({MOVIE_FRAMES} frames of {MOVIE_SIZE} px)")
-    movie = movie_path(model, cfg, device)
+    movie = with_sine_launches(movie_path, model, cfg, device)
 
     log("main path: tools/export_render on the render cell's model (exact, "
         f"fast {FAST_RENDER} and its legacy float32 directory), each "
@@ -4384,40 +4475,58 @@ def main():
     log("main path: the data-parallel mesh on the one card (the render mesh "
         "of two replicas, NCCL at world size 1, two gloo ranks sharing the "
         "card, the refusals)")
-    mesh = mesh_path(model, cfg, device)
+    mesh = with_sine_launches(mesh_path, model, cfg, device)
     del model
     torch.cuda.empty_cache()
 
     log("main path: training the flagship config through K1 and K2")
-    training = train_path(device)
+    training = with_sine_launches(train_path, device)
 
     log(f"main path: training the flagship config with n_importance "
         f"{HIER_IMPORTANCE} (hierarchical sampling)")
-    hierarchical = hierarchical_path(device)
+    hierarchical = with_sine_launches(hierarchical_path, device)
 
     log("main path: training the flagship config on HSLuv ray colours")
-    hsluv = hsluv_path(device)
+    hsluv = with_sine_launches(hsluv_path, device)
 
     log(f"main path: validation at the save points, cli.run_train on the "
         f"synthetic site ({VAL_STEPS} steps, {VAL_SAVES} save points)")
     with tempfile.TemporaryDirectory() as val_io:
-        validation = validation_path(device, io_dir=val_io)
+        validation = with_sine_launches(validation_path, device,
+                                        io_dir=val_io)
         log("main path: the run tools (quality_report, "
             "select_best_geometry, time_to_quality and fast_render_ab on "
             "the validation run, bench_serving_concurrent on the render "
             "cell's model, run_regions on one synthetic site)")
-        tools = tools_path(cfg, device, validation["logs_dir"],
-                           validation["testing"])
+        tools = with_sine_launches(tools_path, cfg, device,
+                                   validation["logs_dir"],
+                                   validation["testing"])
 
     log(f"main path: the evaluation, cli.run_test on the synthetic site "
         f"({EVAL_STEPS} steps, {EVAL_SAVES} save points, best_geometry) and "
         f"with eval_only")
-    evaluation = evaluation_path(device)
+    evaluation = with_sine_launches(evaluation_path, device)
 
     log(f"main path: the real-site path, cli.run_train on a fabricated "
         f"DFC-format site ({SITE_VIEWS} views of {SITE_PX} px), then the "
         f"evaluation of its model")
-    real_site = real_site_path(device)
+    real_site = with_sine_launches(real_site_path, device)
+
+    # the polynomial sine's launches, each main path's own: none where the
+    # model is float32 with sinf, some wherever a bf16 model runs
+    paths = {"serving": serving, "fast_render": fast, "legacy_f32": legacy,
+             "reference": reference, "movie": movie, "export": export,
+             "mesh": mesh, "training": training,
+             "hierarchical": hierarchical, "hsluv": hsluv,
+             "validation": validation, "tools": tools,
+             "evaluation": evaluation, "real_site": real_site}
+    sine_launches = {k: r["fast_sine_launches"] for k, r in paths.items()}
+    log("the polynomial sine's kernel launches by main path: "
+        + json.dumps(sine_launches))
+    for k, n in sine_launches.items():
+        if (n != 0) if k in ("legacy_f32", "reference") else (n == 0):
+            fail(f"the {k} path launched the polynomial sine's kernel {n} "
+                 f"times; want {'none' if n else 'some'}")
 
     flagship = trunk["trunk_infer[bfloat16,fast_sin]"][0]
     kernels = [{
@@ -4496,6 +4605,21 @@ def main():
             "bound_by": tk[f"{key}_bound_by"],
             "library_ms": None,
         })
+    fwd = sine["fwd[bf16]"]         # what every bf16 SineLayer launches
+    kernels.append({
+        "name": fm.KERNEL,
+        "route": "cuda",
+        "source": f"season_nerf_torch/csrc/{fm.KERNEL}.cu",
+        "replaces": "season_nerf_tpu/ops/fast_math.py:88",
+        "launches": sum(sine_launches.values()),
+        "max_abs_err": max(r["max_abs_err"] for k, r in sine.items()
+                           if k != "fwd[bf16]"),
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
@@ -4507,7 +4631,7 @@ def main():
                    "reference": reference, "movie": movie,
                    "export": export, "mesh": mesh, "tools": tools,
                    "train_kernels": train_kernels, "gemms": gemms,
-                   "degrees": degrees, "training": training,
+                   "sine": sine, "degrees": degrees, "training": training,
                    "hierarchical": hierarchical, "hsluv": hsluv,
                    "validation": validation,
                    "evaluation": evaluation, "real_site": real_site,

@@ -14,7 +14,8 @@ computes them: the mean, and the *fast* variance ``max(0, E[z^2] -
 E[z]^2)``.  The running statistics are updated by hand with that biased
 variance and flax's momentum 0.99 (``running = 0.99 running + 0.01
 batch``); ``BatchNorm1d``'s own update, which uses the unbiased variance,
-never runs.  The sine's gradient is the cosine (``ops/fast_math``).
+never runs.  The sine's gradient is the cosine (``ops/fast_math``: one
+kernel launch a direction on a card, the cast to bf16 inside it).
 
 The layer's BatchNorm forward is the span ``siren.batchnorm`` and its sine
 ``siren.sine`` (``utils/trace``); autograd's backward of the BatchNorm
@@ -124,5 +125,7 @@ class SineLayer(nn.Module):
             with trace.span("siren.batchnorm"):
                 z = self.bn_train(z) if self.training else self.bn_eval(z)
         with trace.span("siren.sine"):
-            y = fast_sin(z) if self.fast_sine else torch.sin(z)
+            if self.fast_sine:
+                return fast_sin(z, self.dtype)     # the cast in its launch
+            y = torch.sin(z)
         return y.to(self.dtype) if self.dtype is not None else y

@@ -1,4 +1,5 @@
-"""The polynomial sine and cosine (K0), plain PyTorch.
+"""The polynomial sine and cosine (K0): the plain version, and the
+operators that launch it alone on a card.
 
 One round-to-nearest reduction by 2*pi, then an odd polynomial:
 
@@ -14,15 +15,32 @@ is the default.  The same arithmetic runs inside the CUDA trunk kernels
 (``csrc/fast_sin.cuh``), built at the selected degree
 (``ops/cuda_build``).
 
+:func:`fast_sin` and :func:`fast_cos` call the operators
+``season_nerf::fast_sine`` and, for the gradient,
+``season_nerf::fast_sine_grad`` (:func:`sine_op`, :func:`sine_grad_op`):
+for a CPU tensor the plain version (``reduce_two_pi`` and ``poly_sin``, a
+chain of elementwise passes); for a CUDA tensor one launch of
+``csrc/fast_sine.cu`` a direction, or an error.  On the card the value is
+K0's, the FMA Horner chain of K1/K2/K3: within about an ulp of the plain
+chain, which rounds after every product and sum.  A bf16 result is cast in
+the same launch, the same round-to-nearest-even as ``.to(torch.bfloat16)``.
+``launches`` counts the kernel's launches (``utils/trace`` reads it as
+``fast_sine.launches``).  The plain versions of K1/K2/K3, the references
+the card's checks hold those kernels to, call :func:`plain_sin` and
+:func:`plain_cos` on every device: they share no code with K0 on the card.
+
 As in the JAX package, the derivative of one is the other, not the autograd
-of the polynomial: d fast_sin = fast_cos, d fast_cos = -fast_sin
-(:class:`FastSin`, :class:`FastCos`).  Each backward is the span
-``siren.sine`` (``utils/trace``), as the forward is in ``SineLayer``.
+of the polynomial: d fast_sin = fast_cos, d fast_cos = -fast_sin, to any
+order.  Each backward is the span ``siren.sine`` (``utils/trace``), as the
+forward is in ``SineLayer``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import threading
+from typing import Optional
 
 import torch
 
@@ -76,46 +94,155 @@ def poly_sin(y: torch.Tensor) -> torch.Tensor:
     return y * p
 
 
-def _sin(x):
+def plain_sin(x):
+    """The plain version of fast_sin: a chain of elementwise passes on any
+    device, with no autograd of its own (the plain K1/K2/K3 call it)."""
     return poly_sin(reduce_two_pi(x))
 
 
-def _cos(x):
+def plain_cos(x):
     return poly_sin(reduce_two_pi(x + HALF_PI))
 
 
-class FastSin(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return _sin(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        with trace.span("siren.sine"):
-            return FastCos.apply(x) * g
-
-
-class FastCos(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return _cos(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        with trace.span("siren.sine"):
-            return -FastSin.apply(x) * g
+# The operators every fast sine goes through: SineLayer and an exported
+# render program (tools/export_render.py) record and call the same two.  ``sine_op`` is fast_sin(x), or fast_cos(x)
+# when ``cosine``, cast to bf16 when ``bf16``; ``sine_grad_op`` is its
+# gradient g * fast_cos(x), or -g * fast_sin(x), in x's dtype.  The CPU
+# implementations are the plain version above; the CUDA ones launch
+# ``csrc/fast_sine.cu`` or raise; the fake ones give shape and dtype.
+@torch.library.custom_op("season_nerf::fast_sine", mutates_args=())
+def sine_op(x: torch.Tensor, cosine: bool, bf16: bool) -> torch.Tensor:
+    y = plain_cos(x) if cosine else plain_sin(x)
+    return (y.to(torch.bfloat16) if bf16 else y).contiguous()
 
 
-def fast_sin(x: torch.Tensor) -> torch.Tensor:
+@sine_op.register_fake
+def _sine_op_fake(x, cosine, bf16):
+    return x.new_empty(x.shape, dtype=torch.bfloat16 if bf16 else x.dtype)
+
+
+@torch.library.custom_op("season_nerf::fast_sine_grad", mutates_args=())
+def sine_grad_op(x: torch.Tensor, g: torch.Tensor,
+                 cosine: bool) -> torch.Tensor:
+    slope = -plain_sin(x) if cosine else plain_cos(x)
+    return (slope * g).to(x.dtype).contiguous()
+
+
+@sine_grad_op.register_fake
+def _sine_grad_op_fake(x, g, cosine):
+    return x.new_empty(x.shape)
+
+
+def _save_x(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0])
+    ctx.cosine = inputs[1]
+
+
+def _sine_backward(ctx, g):
+    (x,) = ctx.saved_tensors
+    with trace.span("siren.sine"):
+        return sine_grad_op(x, g, ctx.cosine), None, None
+
+
+def _save_x_g(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0], inputs[1])
+    ctx.cosine = inputs[2]
+
+
+def _sine_grad_backward(ctx, gg):
+    """Of g * D(x) (D = fast_cos, or -fast_sin): gg * D(x) for g, and
+    gg * g * D'(x) = -(gg * g) * fast_sin(x) (or fast_cos(x)) for x."""
+    x, g = ctx.saved_tensors
+    return (-(gg * g) * sine_op(x, ctx.cosine, False),
+            sine_grad_op(x, gg, ctx.cosine).to(g.dtype), None)
+
+
+sine_op.register_autograd(_sine_backward, setup_context=_save_x)
+sine_grad_op.register_autograd(_sine_grad_backward, setup_context=_save_x_g)
+
+launches = 0            # of csrc/fast_sine.cu, both directions
+_lock = threading.Lock()
+KERNEL = "fast_sine"
+
+
+def _library():
+    from season_nerf_torch.ops import cuda_build
+    lib = cuda_build.load(KERNEL)
+    if lib.fast_sine_fwd_launch.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.fast_sine_fwd_launch.argtypes = [P, P, L, I, I, P]
+        lib.fast_sine_bwd_launch.argtypes = [P, P, P, L, I, I, P]
+        lib.fast_sine_fwd_launch.restype = I
+        lib.fast_sine_bwd_launch.restype = I
+        lib.fast_sine_error_string.argtypes = [I]
+        lib.fast_sine_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(name, x, *tensors, flags):
+    """One launch of ``fast_sine_<name>_launch`` over the n elements of the
+    contiguous ``x`` on its card's current stream: x's pointer, then those
+    of ``tensors``, n, ``flags`` and the stream."""
+    lib = _library()
+    with torch.cuda.device(x.device):   # launch on the tensors' card
+        err = getattr(lib, f"fast_sine_{name}_launch")(
+            x.data_ptr(), *(t.data_ptr() for t in tensors), x.numel(),
+            *flags, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fast_sine {name} launch failed: "
+                           f"{lib.fast_sine_error_string(err).decode()}")
+    global launches
+    with _lock:                         # frames in flight on threads
+        launches += 1
+
+
+def _check(x, g=None):
+    """Raise unless the kernel takes ``x`` (and the gradient ``g``)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"the fast sine kernel takes a float32 x, got "
+                         f"{x.dtype}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"the fast sine kernel takes fewer than 2^31 "
+                         f"elements, got {x.numel()}")
+    if g is not None and (g.dtype not in (torch.float32, torch.bfloat16)
+                          or g.shape != x.shape or g.device != x.device):
+        raise ValueError(f"the fast sine kernel takes a float32 or bf16 "
+                         f"gradient of x's shape {tuple(x.shape)} on "
+                         f"{x.device}, got {g.dtype} {tuple(g.shape)} on "
+                         f"{g.device}")
+
+
+@sine_op.register_kernel("cuda")
+def _sine_op_cuda(x, cosine, bf16):
+    _check(x)
+    x = x.contiguous()
+    y = torch.empty(x.shape, dtype=torch.bfloat16 if bf16 else x.dtype,
+                    device=x.device)
+    if x.numel():
+        _launch("fwd", x, y, flags=(int(cosine), int(bf16)))
+    return y
+
+
+@sine_grad_op.register_kernel("cuda")
+def _sine_grad_op_cuda(x, g, cosine):
+    _check(x, g)
+    x, g = x.contiguous(), g.contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel():
+        _launch("bwd", x, g, dx,
+                flags=(int(cosine), int(g.dtype == torch.bfloat16)))
+    return dx
+
+
+def fast_sin(x: torch.Tensor,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """sin(x) to f32 accuracy for |x| up to ~1e3 (one-round reduction) at
-    degree 11; to the selected polynomial's accuracy at 9 or 7."""
-    return FastSin.apply(x)
+    degree 11; to the selected polynomial's accuracy at 9 or 7.  ``dtype``
+    casts the result, in the same launch where it is bf16."""
+    y = sine_op(x, False, dtype == torch.bfloat16)
+    return y if dtype is None or y.dtype == dtype else y.to(dtype)
 
 
 def fast_cos(x: torch.Tensor) -> torch.Tensor:
     """cos(x) as the same polynomial a quarter period on."""
-    return FastCos.apply(x)
+    return sine_op(x, True, False)

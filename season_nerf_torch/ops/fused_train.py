@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from season_nerf_torch.models.encodings import positional_encode
 from season_nerf_torch.models.siren import BN_EPS
 from season_nerf_torch.ops import cuda_build
-from season_nerf_torch.ops.fast_math import fast_cos, fast_sin
+from season_nerf_torch.ops.fast_math import plain_cos, plain_sin
 from season_nerf_torch.ops.fused_trunk import trunk_layers
 from season_nerf_torch.utils import trace
 
@@ -169,7 +169,7 @@ def _forward_tiles(spec: TrunkSpec, pe, params):
     inputs, per-layer (zh, var) with var [n_tiles, 1, w] or None)."""
     n, T = pe.shape[0], spec.tile
     nt = n // T
-    sin = fast_sin if spec.fast_sine else torch.sin
+    sin = plain_sin if spec.fast_sine else torch.sin
     act = _DTYPES[spec.act_dtype]
     offs = spec.offsets()
     h = pe
@@ -232,7 +232,7 @@ def trunk_bwd_reference(spec: TrunkSpec, pe: torch.Tensor,
     whose gradient operand is ``grad_dtype``."""
     n, T = pe.shape[0], spec.tile
     nt = n // T
-    cos = fast_cos if spec.fast_sine else torch.cos
+    cos = plain_cos if spec.fast_sine else torch.cos
     gd = _DTYPES[spec.grad_dtype]
     offs = spec.offsets()
     xenc, _, _, _, inputs, zhs = _forward_tiles(spec, pe, params)

@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from season_nerf_torch.models.encodings import encoded_size, positional_encode
 from season_nerf_torch.models.siren import BN_EPS
 from season_nerf_torch.ops import cuda_build
-from season_nerf_torch.ops.fast_math import fast_sin
+from season_nerf_torch.ops.fast_math import plain_sin
 from season_nerf_torch.utils import trace
 
 PE_FREQS = 10
@@ -231,7 +231,7 @@ def trunk_apply_reference(pe: torch.Tensor, folded: FoldedTrunk,
     layer's sum in float64 and rounds it once to float32: the same function
     in another summation order, which says how far the order alone moves a
     trunk's output."""
-    sin = fast_sin if fast_sine else torch.sin
+    sin = plain_sin if fast_sine else torch.sin
     width, wp = folded.width or folded.width_pad, folded.width_pad
     h = None
     last = len(folded.weights) - 1

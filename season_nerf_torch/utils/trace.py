@@ -19,7 +19,9 @@ the same names.  :func:`drain` returns the kept spans and forgets them.
 :func:`counters` reads the kernels' launch counters, which count always,
 whether or not spans are on: ``k3.launches`` (``ops/fused_trunk``
 ``trunk_apply.launches``), ``k1.launches`` and ``k2.launches``
-(``ops/fused_train`` ``trunk_fwd.launches``, ``trunk_bwd.launches``).
+(``ops/fused_train`` ``trunk_fwd.launches``, ``trunk_bwd.launches``) and
+``fast_sine.launches`` (``ops/fast_math`` ``launches``, the polynomial
+sine's kernel in both directions).
 """
 
 from __future__ import annotations
@@ -111,7 +113,8 @@ class _Open:
 
 def counters() -> Dict[str, int]:
     """The kernels' launches since the process started, by name."""
-    from season_nerf_torch.ops import fused_train, fused_trunk
+    from season_nerf_torch.ops import fast_math, fused_train, fused_trunk
     return {"k3.launches": fused_trunk.trunk_apply.launches,
             "k1.launches": fused_train.trunk_fwd.launches,
-            "k2.launches": fused_train.trunk_bwd.launches}
+            "k2.launches": fused_train.trunk_bwd.launches,
+            "fast_sine.launches": fast_math.launches}

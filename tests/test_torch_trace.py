@@ -17,6 +17,7 @@ import torch
 from season_nerf_torch.config import Config
 from season_nerf_torch.models.siren import SineLayer
 from season_nerf_torch.models.tnerf import model_from_config
+from season_nerf_torch.ops import fast_math
 from season_nerf_torch.ops import fused_train as ftr
 from season_nerf_torch.ops import fused_trunk as ft
 from season_nerf_torch.train.state import save_model_artifact
@@ -139,13 +140,16 @@ def test_the_profiler_carries_the_span_names(on):
 def test_counters_read_the_launch_counters(monkeypatch):
     assert trace.counters() == {"k3.launches": ft.trunk_apply.launches,
                                 "k1.launches": ftr.trunk_fwd.launches,
-                                "k2.launches": ftr.trunk_bwd.launches}
+                                "k2.launches": ftr.trunk_bwd.launches,
+                                "fast_sine.launches": fast_math.launches}
     monkeypatch.setattr(ftr.trunk_fwd, "launches",
                         ftr.trunk_fwd.launches + 2)
     monkeypatch.setattr(ftr.trunk_bwd, "launches",
                         ftr.trunk_bwd.launches + 1)
+    monkeypatch.setattr(fast_math, "launches", fast_math.launches + 3)
     assert trace.counters()["k1.launches"] == ftr.trunk_fwd.launches
     assert trace.counters()["k2.launches"] == ftr.trunk_bwd.launches
+    assert trace.counters()["fast_sine.launches"] == fast_math.launches
     assert not hasattr(ftr.gemm_bf16, "launches")
 
 
