@@ -39,8 +39,14 @@ def nbytes(c: dict, n: int):
     return k1, k2
 
 
-def step_bound_s(c: dict) -> float:
-    """K1 twice (camera and solar pass) and K2 once a step."""
+def launch_bounds_s(c: dict):
+    """-> (K1, K2): the bound of one launch over the batch's samples."""
     n = c["batch_size"] * c["n_samples"]
     (f1, f2), (b1, b2) = flops(c, n), nbytes(c, n)
-    return 2 * bound_s(f1, b1, "bfloat16") + bound_s(f2, b2, "bfloat16")
+    return bound_s(f1, b1, "bfloat16"), bound_s(f2, b2, "bfloat16")
+
+
+def step_bound_s(c: dict) -> float:
+    """K1 twice (camera and solar pass) and K2 once a step."""
+    k1, k2 = launch_bounds_s(c)
+    return 2 * k1 + k2

@@ -1,15 +1,18 @@
 """What the per-layer readers share: names of the hand-written kernels in
-the profiler's trace, and the arithmetic over a run's trace and work.
-Each reader returns None where its run has nothing for it to read."""
+the profiler's trace, and the arithmetic over a run's trace, work, the
+program's spans (``run.program_spans``) and its launch counters' deltas
+(``run.counts``).  Each reader returns None where its run has nothing for
+it to read: a run without a trace, or a port without spans or counters."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from portbench.counts import frame, k3, peaks
+from portbench.counts import frame, k1k2, k3, peaks, sine
 
 K3_MARKS = ("trunk_bf16", "trunk_f32")
 K12_MARKS = ("tt::",)
+SINE_MARKS = ("fast_sine_fwd", "fast_sine_bwd")
 
 
 def named(marks):
@@ -59,3 +62,43 @@ def span_seconds(run) -> float:
 
 def p90(values):
     return float(np.percentile(values, 90)) if len(values) else None
+
+
+def ms_a_step_under(run, span: str):
+    """Device ms a step of the operations launched under the program span
+    ``span``."""
+    steps = run.work.get("steps")
+    if run.trace is None or not run.program_spans or not steps:
+        return None
+    t = run.trace.device_s_under(span)
+    return 1e3 * t / steps if t > 0 else None
+
+
+def launch_roofline(run, k: str):
+    """K1's or K2's (``k``) share of its roofline: the bound of a launch
+    (``counts/k1k2.py``) times the window's launches (``<k>.launches``)
+    over the device time under the ``<k>.launch`` spans."""
+    n = (run.counts or {}).get(f"{k}.launches")
+    if run.trace is None or not run.program_spans or not n:
+        return None
+    t = run.trace.device_s_under(f"{k}.launch")
+    if t <= 0:
+        return None
+    bound = k1k2.launch_bounds_s(run.config)[("k1", "k2").index(k)]
+    return 100.0 * n * bound / t
+
+
+def sine_roofline(run, launches):
+    """The sine kernel's share of its roofline: the bound of each of
+    ``launches`` (``counts/sine.py``: ``(elements, direction)``) over the
+    device time of its kernels, provided the window's
+    ``fast_sine.launches`` are as many as ``launches``."""
+    n = (run.counts or {}).get("fast_sine.launches")
+    if run.trace is None or not launches or n != len(launches):
+        return None
+    t = run.trace.device_s(named(SINE_MARKS))
+    if t <= 0:
+        return None
+    c = run.config
+    return 100.0 * sum(sine.launch_bound_s(c, e, d)
+                       for e, d in launches) / t

@@ -8,12 +8,20 @@ limits and per-layer readers are files found by name (``bench.py``).
 Set-up (process start to the first timed call) makes every input from
 the seed, builds the program's objects and warms each shape the window
 uses; the window then runs for ``--seconds``.  With ``--trace 1`` the
-window runs under ``torch.profiler`` and the line carries the per-layer
-metrics, the device's busy seconds and a breakdown; with ``--trace 0`` the
-end-to-end metrics.  After the window the program's state is freed and
-the plain reference (``reference/``) judges what the timed path produced;
-each number compared is printed beside its limit, last on standard error
-and last in the result's line, which is the last line of standard output.
+window runs under ``torch.profiler``: the readers get the profiler's
+trace (``run.trace``, its device time by kernel name and by the program
+span that launched it), the benchmark's host spans (``run.spans``), the
+window's deltas of the program's launch counters (``run.counts``), and,
+where a reader of the cell reads them (its module's ``SPANS``), the
+program's spans of the window (``run.program_spans``; the port's tracer,
+``season_nerf_torch.utils.trace``, is on for the window only then).  The
+line carries the per-layer metrics, the device's busy seconds and a
+breakdown.  With ``--trace 0`` the line carries the end-to-end metrics,
+and the run imports, enables and reads nothing of the program's tracer.
+After the window the program's state is freed and the plain reference
+(``reference/``) judges what the timed path produced; each number
+compared is printed beside its limit, last on standard error and last in
+the result's line, which is the last line of standard output.
 
 Exits with another code than 0, printing no result, without a card (or
 with fewer than the cell asks for), without the program beside this
@@ -28,6 +36,7 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
@@ -74,6 +83,7 @@ class Run:
         self.end_to_end, self.work = {}, {}
         self.attempted = self.failed = 0
         self.program = self.trace = None
+        self.program_spans = self.counts = None
         self.cleanup, self.children, self.stops = [], [], []
 
     def mark(self, name: str):
@@ -98,6 +108,49 @@ def import_program():
     if where != os.path.join(ROOT, "season_nerf_torch"):
         raise ImportError(f"season_nerf_torch comes from {where}, not "
                           f"from {ROOT}")
+
+
+def port_tracer():
+    """The port's tracer (``season_nerf_torch.utils.trace``), or None on a
+    port without one."""
+    try:
+        from season_nerf_torch.utils import trace as tracer
+    except ImportError:
+        return None
+    return tracer
+
+
+def reads_spans(cell: bench.Cell) -> bool:
+    """Whether a per-layer reader of ``cell`` reads the program's spans:
+    they cost the host some microseconds each, so a cell whose readers
+    read none runs its traced window with them off."""
+    return any(getattr(bench.reader(m["name"]), "SPANS", False)
+               for m in cell.per_layer)
+
+
+@contextlib.contextmanager
+def program_spans(run: Run, tracer, spans: bool):
+    """Around the block, the port's launch counters read and, with
+    ``spans``, its spans on: afterwards ``run.counts`` holds each
+    counter's delta over the block and ``run.program_spans`` the spans
+    that ended in it (none with ``spans`` off)."""
+    if tracer is None:
+        yield
+        return
+    kept = []
+    if spans:
+        tracer.drain()
+        tracer.enable()
+    try:
+        before = tracer.counters()
+        yield
+        after = tracer.counters()
+    finally:
+        if spans:
+            kept = tracer.drain()
+            tracer.disable()
+    run.program_spans = kept
+    run.counts = {k: v - before.get(k, 0) for k, v in after.items()}
 
 
 def guard():
@@ -132,14 +185,16 @@ def execute(name: str, seed: int, seconds: float, traced: bool,
                                      run.marks + [("warm", setup_s)]),
               file=sys.stderr)
         holder = {}
-        with trace.traced(traced, holder):
+        with program_spans(run, port_tracer() if traced else None,
+                           reads_spans(cell)), \
+                trace.traced(traced, holder):
             kind.window(run)
         guard()
         peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                 else 0)
         metrics = {}
         if traced:
-            run.trace = holder["read"](*run.window_span)
+            run.trace = holder["read"](*run.window_span, run.program_spans)
             for m in cell.per_layer:
                 v = bench.reader(m["name"]).read(run)
                 if v is not None:
