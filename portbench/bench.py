@@ -6,12 +6,20 @@ folder, found by the name it carries there:
 
 - ``configs/<config>.json``     the configuration as it is run
 - ``traffic/<traffic>.json``    a traffic mix: its ``kind`` and parameters
-- ``traffic/<kind>.py``         the generator of one kind of traffic
+- ``traffic/<kind>.py``         the generator of one kind of traffic:
+                                ``setup``, ``window``, ``release`` and
+                                ``check`` of a run, and for the tests
+                                ``SMALL`` (the mix's keys at a CPU test's
+                                size) and ``CONTROL_SECONDS`` (the window
+                                of a control run on the card)
 - ``limits/<cell>.json``        the limit of each number ``correct`` compares
 - ``metrics/<metric>.py``       the reader of one per-layer metric
 
 so a later change adds a cell, a configuration, a mix or a metric by
-adding files and entries, and edits none.
+adding files and entries, and edits none.  A cell's ``chips`` (1 or 4)
+are cards 0..n-1; a kind whose work spans processes runs rank 0 in the
+harness's process, on ``cuda:0``, and the others as its children
+(``run.py`` says what the harness then reads and watches).
 """
 
 from __future__ import annotations

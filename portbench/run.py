@@ -23,10 +23,32 @@ After the window the program's state is freed and the plain reference
 compared is printed beside its limit, last on standard error and last in
 the result's line, which is the last line of standard output.
 
+Cards and processes.  A cell of ``chips`` n runs on cards 0..n-1.  This
+process is the one whose window is timed and traced, so a kind whose
+work spans processes runs one rank of it here, rank 0 on ``cuda:0``, and
+keeps the processes that run the others in ``run.children``:
+
+- ``memory_peak_bytes`` is the fullest card's: the largest of this
+  process's ``max_memory_allocated`` on each of cards 0..n-1, and of what
+  the kind reports in ``run.peaks`` (card index -> bytes) for the cards
+  that other processes drive;
+- the trace is this process's: ``busy_s``, the idle shares and the idle
+  gaps are those of ``run.device``'s card, while device time by kernel
+  name or program span sums all that this process launched
+  (``trace.py``);
+- a child in ``run.children`` that exits with another code than 0, in
+  set-up, the window or the check, ends the run within a second: the
+  other children are ended, no result is printed and the process exits
+  with ``CHILD_DIED`` (a rank left alone would wait in a collective for
+  the mesh's timeout).
+
+On a one-card cell whose kind starts no rank, these are the card's
+peak, its trace and nothing to watch.
+
 Exits with another code than 0, printing no result, without a card (or
 with fewer than the cell asks for), without the program beside this
-folder, or when the process holds ``jax``, ``jaxlib``, ``flax`` or the
-JAX package once the window has closed.
+folder, when a child dies as above, or when the process holds ``jax``,
+``jaxlib``, ``flax`` or the JAX package once the window has closed.
 """
 
 from __future__ import annotations
@@ -41,6 +63,7 @@ import json  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
 import sys  # noqa: E402
+import threading  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -53,6 +76,8 @@ from portbench import bench, trace  # noqa: E402
 # checkout (the port keeps its own libraries under build/season_nerf_torch)
 CACHES = {"TRITON_CACHE_DIR": "triton", "TORCH_EXTENSIONS_DIR": "extensions",
           "CUDA_CACHE_PATH": "nv"}
+CHILD_DIED = 4          # the exit code of a run ended by a child's death
+WATCH_S = 0.25          # how often the children are looked at
 
 
 def process_age() -> float:
@@ -85,20 +110,63 @@ class Run:
         self.program = self.trace = None
         self.program_spans = self.counts = None
         self.cleanup, self.children, self.stops = [], [], []
+        self.peaks = {}         # card -> peak bytes of another process
+        self._closing = threading.Event()
+        self._watcher = None
 
     def mark(self, name: str):
         """Note the process's age as set-up reaches ``name``."""
         self.marks.append((name, self.age()))
 
-    def close(self):
-        for stop in self.stops:
-            stop()
+    def watch(self):
+        """Until :meth:`close`, end the process when a child dies: a
+        thread looks at ``children`` every ``WATCH_S`` seconds, and on one
+        that has exited with another code than 0 ends the others, removes
+        ``cleanup`` and exits with ``CHILD_DIED``.  The process cannot wait
+        for its main thread, which may be blocked in a collective that
+        only the mesh's timeout ends."""
+        def look():
+            while not self._closing.wait(WATCH_S):
+                dead = self._dead()
+                if dead:
+                    print(f"portbench: {dead}; ending the run",
+                          file=sys.stderr, flush=True)
+                    self._end_children()
+                    self._remove()
+                    os._exit(CHILD_DIED)
+        self._watcher = threading.Thread(target=look, daemon=True)
+        self._watcher.start()
+
+    def _dead(self) -> str:
+        """Which children have exited with another code than 0."""
+        codes = [(c, c.poll()) for c in self.children]
+        return "; ".join(f"child {c.pid} ({str(c.args)[:120]}) exited "
+                         f"with code {rc}" for c, rc in codes
+                         if rc not in (None, 0))
+
+    def _end_children(self):
         for child in self.children:
             if child.poll() is None:
                 child.kill()
             child.wait()
+
+    def _remove(self):
         for d in self.cleanup:
             shutil.rmtree(d, ignore_errors=True)
+
+    def close(self):
+        """Stop the watch, the kind's services and every child; raises
+        if a child had exited with another code than 0."""
+        self._closing.set()
+        if self._watcher is not None:
+            self._watcher.join()
+        for stop in self.stops:
+            stop()
+        dead = self._dead()
+        self._end_children()
+        self._remove()
+        if dead:
+            raise RuntimeError(dead)
 
 
 def import_program():
@@ -175,6 +243,7 @@ def execute(name: str, seed: int, seconds: float, traced: bool,
     dev = torch.device(device)
     run = Run(cell, seed, seconds, dev, faults, age)
     try:
+        run.watch()
         import_program()
         run.mark("program imported")
         kind.setup(run)
@@ -190,11 +259,11 @@ def execute(name: str, seed: int, seconds: float, traced: bool,
                 trace.traced(traced, holder):
             kind.window(run)
         guard()
-        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                else 0)
+        peak = memory_peak(run)
         metrics = {}
         if traced:
-            run.trace = holder["read"](*run.window_span, run.program_spans)
+            run.trace = holder["read"](*run.window_span, run.program_spans,
+                                       card(dev))
             for m in cell.per_layer:
                 v = bench.reader(m["name"]).read(run)
                 if v is not None:
@@ -222,6 +291,25 @@ def execute(name: str, seed: int, seconds: float, traced: bool,
     result["readings"] = numbers if len(modes) == 1 else readings
     result["checks"] = checks
     return result
+
+
+def card(dev):
+    """The index of the card ``dev`` names (None off CUDA)."""
+    import torch
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def memory_peak(run) -> int:
+    """The fullest card's peak: this process's on each of the cell's
+    cards, and the kind's ``run.peaks`` for the cards other processes
+    drive (a card this process never touched reads 0)."""
+    import torch
+    mine = ([torch.cuda.max_memory_allocated(i)
+             for i in range(run.cell.chips)]
+            if run.device.type == "cuda" else [])
+    return int(max(mine + list(run.peaks.values()) + [0]))
 
 
 def device_info(dev, chips: int, peak: int, tr) -> dict:

@@ -12,25 +12,20 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 SMALL = {"fc_units": 32, "batch_size": 64, "n_samples": 32, "chunk": 256}
-SMALL_TRAFFIC = {
-    "train_steps": {"site": {"views": 3, "px": 16, "grid": 16,
-                             "held_out": 1}},
-    "http_open": {"rate": 4.0, "sizes": [8, 16], "checked": 4},
-    "frames_closed": {"size": 16, "frames": 4000, "checked": 3},
-}
 
 
 def small(cell: str, **config) -> dict:
     """``execute`` overrides that run ``cell`` at a CPU test's size (the
     fused trunk takes widths that are multiples of 256 at the least, and
-    two 2,048-row tiles, so that half of the batch is still one)."""
+    two 2,048-row tiles, so that half of the batch is still one); the
+    mix's kind gives its own small mix (its ``SMALL``)."""
     from portbench import bench
     c = bench.cell(cell)
     cfg = dict(SMALL, **config)
     if c.config.get("pallas_trunk"):
         cfg["fc_units"] = max(cfg["fc_units"], 256)
         cfg["batch_size"] = max(cfg["batch_size"], 128)
-    return {"config": cfg, "traffic": SMALL_TRAFFIC[c.traffic["kind"]]}
+    return {"config": cfg, "traffic": bench.kind(c.traffic).SMALL}
 
 
 @pytest.fixture(autouse=True)

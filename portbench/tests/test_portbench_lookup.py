@@ -30,6 +30,9 @@ def test_top_level_keys():
 
 
 def test_entries():
+    """Each entry's keys and names; 1 or 4 cards a cell, and at most a
+    quarter of the cells (rounded down, one always) on 4."""
+    B = bench.definitions()
     for c in B["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and c["file"] == \
@@ -45,7 +48,10 @@ def test_entries():
     assert len(set(pairs)) == len(pairs)
     for w in B["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    four = [w["name"] for w in B["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(B["workloads"]) // 4), \
+        f"too many four-card cells: {four}"
     names = [m["name"] for m in B["end_to_end"] + B["per_layer"]]
     assert len(set(names)) == len(names) and all(map(NAME.match, names))
     setup = [m for m in B["end_to_end"] if m["name"] == "setup_s"]
@@ -69,6 +75,11 @@ def test_cell_found_by_name(name):
     kind = bench.kind(cell.traffic)
     for fn in ("setup", "window", "release", "check"):
         assert callable(getattr(kind, fn))
+    where = f"traffic/{cell.traffic['kind']}.py"
+    assert isinstance(getattr(kind, "SMALL", None), dict), \
+        f"{where} lacks SMALL, its mix at a CPU test's size"
+    assert getattr(kind, "CONTROL_SECONDS", 0) > 0, \
+        f"{where} lacks CONTROL_SECONDS, the window of a control run"
     assert cell.limits and all(v > 0 for v in cell.limits.values())
     assert len(cell.end_to_end) >= 2 and cell.per_layer
     for m in cell.per_layer:

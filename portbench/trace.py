@@ -26,6 +26,13 @@ render lock launches nothing).  The server's handler threads carry an id
 in the trace that is neither their native nor their pthread id, so their
 launches take that second rule.  :meth:`Trace.device_s_under` sums the
 device seconds under a span's name, its children's included.
+
+The profiler traces this process only, and each device operation keeps
+the card it ran on (the event's ``device`` argument).  Busy time, and
+with it the idle shares and the idle gaps, is that of one card, the
+run's (``card``; an operation that names no card counts as on it);
+device time by name or by span sums every operation this process
+launched, on whichever card.
 """
 
 from __future__ import annotations
@@ -104,13 +111,14 @@ def depths(program) -> dict:
 class Trace:
     """The device operations of a traced window, on the host's clock.
 
-    ``ops`` are ``(name, start, end, correlation)``, ``host_ops``
+    ``ops`` are ``(name, start, end, correlation, card)``, ``host_ops``
     ``(name, start, end)``, ``launches`` maps a correlation id to the
     launch's ``(host time, thread)``, and ``program`` holds the program's
-    spans."""
+    spans.  ``union`` is the busy time of ``card`` (of every card where
+    None)."""
 
     def __init__(self, ops, host_ops, start: float, end: float,
-                 launches=None, program=()):
+                 launches=None, program=(), card=None):
         self.ops = [o for o in ops if o[2] > start and o[1] < end]
         self.host_ops = host_ops
         self.start, self.end = start, end
@@ -118,7 +126,8 @@ class Trace:
         self.program = list(program)
         self.depth = depths(self.program)
         self.union = merge((max(o[1], start), min(o[2], end))
-                           for o in self.ops)
+                           for o in self.ops
+                           if card is None or o[4] in (None, card))
         self._under = None
 
     @property
@@ -164,7 +173,7 @@ class Trace:
                 if not here:
                     open_on.pop(spans[i].thread, None)
             else:
-                _, a, b, corr = self.ops[i]
+                _, a, b, corr, _ = self.ops[i]
                 s = self._launcher(open_on, self.launches[corr][1])
                 names = set()
                 while s is not None:
@@ -229,9 +238,9 @@ class Trace:
 @contextlib.contextmanager
 def traced(enabled: bool, holder: dict):
     """Run the block under ``torch.profiler`` when ``enabled``; afterwards
-    ``holder["read"](start, end, program)`` gives the :class:`Trace` of a
-    host interval inside the block, with the program's spans
-    ``program``."""
+    ``holder["read"](start, end, program, card)`` gives the :class:`Trace`
+    of a host interval inside the block, with the program's spans
+    ``program``, busy on ``card``."""
     if not enabled:
         yield
         return
@@ -256,8 +265,8 @@ def traced(enabled: bool, holder: dict):
             events = json.load(f)["traceEvents"]
     finally:
         os.remove(path)
-    holder["read"] = lambda a, b, program=None: read_events(
-        events, (t0 + t1) / 2, a, b, program)
+    holder["read"] = lambda a, b, program=None, card=None: read_events(
+        events, (t0 + t1) / 2, a, b, program, card)
 
 
 def tie(notes, program, base: float) -> float:
@@ -311,11 +320,11 @@ def on_trace_clock(program, notes, base: float):
 
 
 def read_events(events, sync_host: float, start: float, end: float,
-                program=None) -> Optional[Trace]:
+                program=None, card=None) -> Optional[Trace]:
     """A :class:`Trace` of ``[start, end)`` (host seconds) from chrome-trace
     events whose ``SYNC`` marker happened at ``sync_host``, with the
     program's spans ``program``, which also tie the clocks and take their
-    annotations' edges (:func:`on_trace_clock`)."""
+    annotations' edges (:func:`on_trace_clock`), and busy on ``card``."""
     marks = [e for e in events if e.get("name") == SYNC and "ts" in e]
     if not marks:
         return None
@@ -329,12 +338,12 @@ def read_events(events, sync_host: float, start: float, end: float,
     at = lambda us: us * 1e-6 - base
     args = lambda e: e.get("args") or {}
     ops = [(e["name"], at(e["ts"]), at(e["ts"] + e["dur"]),
-            args(e).get("correlation")) for e in events
-           if e.get("cat") in DEVICE_CATS and "dur" in e]
+            args(e).get("correlation"), args(e).get("device"))
+           for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
     host = [(e["name"], at(e["ts"]), at(e["ts"] + e["dur"])) for e in events
             if e.get("cat") in HOST_CATS and "dur" in e
             and e["name"] not in names]
     launches = {args(e)["correlation"]: (at(e["ts"]), e.get("tid"))
                 for e in events if e.get("cat") in LAUNCH_CATS
                 and "correlation" in args(e)}
-    return Trace(ops, host, start, end, launches, program)
+    return Trace(ops, host, start, end, launches, program, card)

@@ -17,6 +17,10 @@ import torch
 
 from portbench import frames, inputs, program
 
+# the mix at a CPU test's size, and the window of a control run on the card
+SMALL = {"size": 16, "frames": 4000, "checked": 3}
+CONTROL_SECONDS = 3.0
+
 
 def setup(run):
     from season_nerf_torch.render.loading import load_model_dir

@@ -36,6 +36,9 @@ from portbench import frames, inputs, program
 
 LOADGEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "loadgen.py")
+# the mix at a CPU test's size, and the window of a control run on the card
+SMALL = {"rate": 4.0, "sizes": [8, 16], "checked": 4}
+CONTROL_SECONDS = 8.0
 
 
 def _path(f: dict, layer: str) -> str:

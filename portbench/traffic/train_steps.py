@@ -29,6 +29,9 @@ GHOST_TILE = 2048          # the fused trunk's BatchNorm tile
 # a leaf whose reference gradient is below this share of the median
 # leaf's moves by Adam's round-off alone (a bias under BatchNorm)
 QUIET = 1e-3
+# the mix at a CPU test's size, and the window of a control run on the card
+SMALL = {"site": {"views": 3, "px": 16, "grid": 16, "held_out": 1}}
+CONTROL_SECONDS = 2.0
 
 
 def _optimizer_grads(tr) -> dict:
