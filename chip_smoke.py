@@ -7,9 +7,10 @@ Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``season_nerf_torch/csrc``: K3
-   (``trunk_infer``), K1 (``trunk_train_fwd``), K2 (``trunk_train_bwd``)
-   and the polynomial sine (``fast_sine``), one ``nvcc`` per source, started together, and print what ``ptxas``
-   reports (registers, shared memory, spills);
+   (``trunk_infer``), K1 (``trunk_train_fwd``), K2 (``trunk_train_bwd``),
+   the polynomial sine (``fast_sine``) and the training BatchNorm
+   (``batchnorm_train``), one ``nvcc`` per source, started together, and
+   print what ``ptxas`` reports (registers, shared memory, spills);
 3. hold each kernel against its plain PyTorch version:
    - K3 at the shapes of the flagship render chunk (width 512, fc1..fc8 +
      fc9, 5120 rays x 96 samples), at the validation chunk (4096 rays x 96
@@ -27,6 +28,12 @@ Phases, each fatal on failure:
      and bf16, against the plain chain of ``ops/fast_math`` within
      SINE_TOL (a bf16 store: its own f32 value cast, bit for bit, and
      within the two casts of the plain chain's);
+   - the training BatchNorm of a bf16 SineLayer (``ops/batchnorm_train``:
+     the column sums, the folded sine both ways, dz) at a flagship step's
+     393,216 x 512 and x 256 against its plain version, at the tolerances
+     of ``tests/test_torch_batchnorm_cuda.py``, the column-sum and dz
+     passes timed beside their bytes' bound, and the layer forward and
+     backward beside the plain version's;
    - K3's f32 kernel also at width 768 (32-row tiles), and its nine layer
      products alone as cuBLAS f32 GEMMs (``torch.matmul``, TF32 off), a
      yardstick the port never calls;
@@ -198,6 +205,7 @@ port is not beside this script.  Every measurement also goes, as JSON, to
 
 from __future__ import annotations
 
+import copy
 import io
 import json
 import os
@@ -234,6 +242,12 @@ FAST_RENDER = (32, 32)          # --fast_render's qualified setting
 FAST_N = 5120 * 32              # points of a fast render chunk's passes
 SINE_SHAPE = (4096 * 96, 512)   # one SIREN layer's z in a flagship step
 SINE_TOL = 2e-6                 # the sine's kernel against the plain chain
+# the training BatchNorm's kernels against their plain version on the card
+# (tests/test_torch_batchnorm_cuda.py derives each): y beyond the two casts'
+# half steps; the running statistics, the scale's and shift's gradients and
+# dz (beyond its casts) as shares of their largest
+BN_WIDTHS = (512, 256)          # fc2..fc8 and fc9 of the flagship trunk
+BN_Y_ATOL, BN_STATS_RTOL, BN_GRAD_RTOL = 3e-5, 2e-6, 2e-5
 SEED = 0
 STEADY_PATH = "/render?size=128"
 STEADY_REQUESTS = 10
@@ -2176,9 +2190,13 @@ def train_path(device) -> dict:
     torch.cuda.empty_cache()
 
     # for the record: the default trunk (full-batch BatchNorm), another
-    # function, so no yardstick for K1 and K2
+    # function, so no yardstick for K1 and K2; its BatchNorm runs
+    # ops/batchnorm_train's kernels, 24 launches a step (16 column sums:
+    # fc2..fc9 in the camera and the solar pass; 8 dz)
+    from season_nerf_torch.ops import batchnorm_train as bt
     tr = Trainer(flagship_train_config(pallas_trunk=False), table,
                  prior_hm=scene.prior_hm, device=device)
+    b0 = bt.launches
     tr.train_step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2188,10 +2206,15 @@ def train_path(device) -> dict:
     secs = time.perf_counter() - t0
     if not finite_losses(last):
         fail(f"default trunk: non-finite loss {last}")
+    bn = bt.launches - b0
+    if bn != 24 * (DEFAULT_TRUNK_STEPS + 1):
+        fail(f"default trunk: {DEFAULT_TRUNK_STEPS + 1} steps launched the "
+             f"training BatchNorm's kernels {bn} times; want 24 a step")
+    report["default_trunk_batchnorm_launches"] = bn
     report["default_trunk_step_ms"] = secs / DEFAULT_TRUNK_STEPS * 1e3
-    log(f"  default trunk (full-batch BatchNorm, plain PyTorch): "
-        f"{report['default_trunk_step_ms']:.1f} ms a step over "
-        f"{DEFAULT_TRUNK_STEPS} steps")
+    log(f"  default trunk (full-batch BatchNorm, ops/batchnorm_train's "
+        f"kernels, {bn} launches): {report['default_trunk_step_ms']:.1f} ms "
+        f"a step over {DEFAULT_TRUNK_STEPS} steps")
     del tr
     torch.cuda.empty_cache()
 
@@ -4265,16 +4288,108 @@ def check_sine(device, shape=SINE_SHAPE) -> dict:
     return out
 
 
+def check_batchnorm(device, rows=SINE_SHAPE[0], widths=BN_WIDTHS) -> dict:
+    """The training BatchNorm of a bf16 SineLayer (``ops/batchnorm_train``)
+    at one flagship step's layer shapes: the kernels against the plain
+    version on the same card tensors (column means 5 N(0, 1), spreads 2-10,
+    one constant column), within the BN_* tolerances; the column-sum pass
+    (bf16 z in, float32 z out: 6 B an element) and the dz pass (float32 z
+    and du in, bf16 dz out: 10 B) timed by CUDA events beside their bytes'
+    bound and the plain version's passes; and the layer forward and
+    backward, kernels against the plain version."""
+    from season_nerf_torch.ops import batchnorm_train as bt
+    out = {}
+    for c in widths:
+        gen = torch.Generator(device=device).manual_seed(SEED + c)
+        mean = torch.randn(c, generator=gen, device=device) * 5
+        std = torch.rand(c, generator=gen, device=device) * 8 + 2
+        z = (torch.randn(rows, c, generator=gen, device=device) * std
+             + mean).to(torch.bfloat16)
+        z[:, 3] = 0.75
+        g = torch.randn(rows, c, generator=gen,
+                        device=device).to(torch.bfloat16)
+        norm = torch.nn.BatchNorm1d(c).to(device)
+        with torch.no_grad():
+            norm.weight.uniform_(0.5, 1.5, generator=gen)
+            norm.bias.uniform_(-0.5, 0.5, generator=gen)
+
+        def layer(plain, keep=None):
+            n = copy.deepcopy(norm)
+            zr = z.clone().requires_grad_()
+            y = bt.batchnorm_sine(zr, n, None, plain)
+            y.backward(g)
+            if keep is not None:
+                keep.update(y=y, dz=zr.grad, dscale=n.weight.grad,
+                            dshift=n.bias.grad, running_mean=n.running_mean,
+                            running_var=n.running_var)
+
+        got, want = {}, {}
+        layer(False, got)
+        layer(True, want)
+        gaps = {}
+        for k, a in got.items():
+            a, b = a.detach().float(), want[k].detach().float()
+            d = (a - b).abs()
+            if k in ("y", "dz"):
+                d = (d - 2.0 ** -8 * (a.abs() + b.abs())).clamp_min(0)
+            gaps[k] = float(d.max() / (1.0 if k == "y" else b.abs().max()))
+        tol = dict(y=BN_Y_ATOL, dz=BN_GRAD_RTOL, dscale=BN_GRAD_RTOL,
+                   dshift=BN_GRAD_RTOL, running_mean=BN_STATS_RTOL,
+                   running_var=BN_STATS_RTOL)
+        if any(gaps[k] > tol[k] for k in tol):
+            fail(f"batchnorm_train at {rows} x {c}: gaps {gaps} against the "
+                 f"plain version (tolerances {tol})")
+
+        scale = norm.weight.detach()
+        rm, rv = norm.running_mean.clone(), norm.running_var.clone()
+        zf, stats = bt._kernel_stats(z, scale, rm, rv, None)
+        du, ab = bt._kernel_sine_grad(zf, g, stats, norm.bias.detach())
+        n = z.numel()
+        passes = {
+            "column_sums": (lambda: bt._kernel_stats(z, scale, rm, rv, None),
+                            lambda: bt._plain_stats(z, scale, rm, rv, None),
+                            6),
+            "dz": (lambda: bt._kernel_dz(zf, du, stats, ab),
+                   lambda: bt._plain_dz(zf, du, stats, ab), 10),
+        }
+        rec = {"gaps": gaps}
+        for name, (kernel, plain, bytes_per) in passes.items():
+            ms = cuda_ms(kernel, 20, warmup=2)
+            plain_ms = cuda_ms(plain, 5, warmup=1)
+            bound_ms = 1e3 * n * bytes_per / PEAK_BYTES
+            rec[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "roofline": bound_ms / ms}
+            log(f"  batchnorm_train {name} at {rows} x {c}: {ms:.4f} ms "
+                f"(bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f} %), "
+                f"plain {plain_ms:.3f} ms")
+        rec["layer_ms"] = cuda_ms(lambda: layer(False), 10, warmup=2)
+        rec["layer_plain_ms"] = cuda_ms(lambda: layer(True), 3, warmup=1)
+        log(f"  a layer forward and backward at {rows} x {c}: kernels "
+            f"{rec['layer_ms']:.3f} ms, plain version "
+            f"{rec['layer_plain_ms']:.3f} ms; gaps {gaps}")
+        out[str(c)] = rec
+        del z, g, zf, du, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def with_sine_launches(run, *args, **kwargs) -> dict:
     """``run(*args, **kwargs)``'s report with ``fast_sine_launches``: the
     polynomial sine kernel's launches in this process while it ran,
-    counted from 0."""
+    counted from 0; ``batchnorm_launches``, the training BatchNorm's
+    column-sum and dz launches, and ``folded_sine_launches``, the sine's
+    launches with the BatchNorm folded in (among ``fast_sine_launches``),
+    likewise."""
+    from season_nerf_torch.ops import batchnorm_train as bt
     from season_nerf_torch.ops import fast_math as fm
-    fm.launches = 0
+    fm.launches = bt.launches = bt.sine_launches = 0
     report = run(*args, **kwargs)
     report["fast_sine_launches"] = fm.launches
+    report["batchnorm_launches"] = bt.launches
+    report["folded_sine_launches"] = bt.sine_launches
     log(f"  the polynomial sine's kernel: {fm.launches} launches on this "
-        f"path")
+        f"path ({bt.sine_launches} with the BatchNorm folded in); the "
+        f"training BatchNorm's kernels: {bt.launches}")
     return report
 
 
@@ -4394,8 +4509,10 @@ def main():
         fail("scipy is absent: the evaluation's alignment searches and LPs "
              "need it")
 
+    from season_nerf_torch.ops import batchnorm_train as bt
     names = [ft.KERNEL] if args.only else [ft.KERNEL, ftr.FWD_KERNEL,
-                                           ftr.BWD_KERNEL, fm.KERNEL]
+                                           ftr.BWD_KERNEL, fm.KERNEL,
+                                           bt.KERNEL]
     t0 = time.perf_counter()
     cuda_build.build(names)
     nvcc_s = time.perf_counter() - t0
@@ -4434,6 +4551,8 @@ def main():
     gemms = check_gemms(device)
     log("the polynomial sine's kernel against the plain chain:")
     sine = check_sine(device)
+    log("the training BatchNorm's kernels against their plain version:")
+    batchnorm = check_batchnorm(device)
 
     log(f"K3, K1 and K2 at FAST_SIN_DEGREE "
         f"{' and '.join(map(str, DEGREES))}, one child process each:")
@@ -4527,6 +4646,20 @@ def main():
         if (n != 0) if k in ("legacy_f32", "reference") else (n == 0):
             fail(f"the {k} path launched the polynomial sine's kernel {n} "
                  f"times; want {'none' if n else 'some'}")
+    # the training BatchNorm's launches: none where nothing trains, some
+    # wherever a bf16 default trunk trains; one folded sine launch for each
+    bn_launches = {k: [r["batchnorm_launches"], r["folded_sine_launches"]]
+                   for k, r in paths.items() if "batchnorm_launches" in r}
+    log("the training BatchNorm's kernel launches and the folded sine's by "
+        "main path: " + json.dumps(bn_launches))
+    for k, (n, folded) in bn_launches.items():
+        frozen = k in ("serving", "fast_render", "legacy_f32", "reference",
+                       "movie")
+        trains = k in ("training", "mesh", "hierarchical")
+        if n != folded or (frozen and n) or (trains and not n):
+            fail(f"the {k} path launched the training BatchNorm's kernels "
+                 f"{n} times and the folded sine {folded} times; want as "
+                 f"many of each, {'none' if frozen else 'some'}")
 
     flagship = trunk["trunk_infer[bfloat16,fast_sin]"][0]
     kernels = [{
@@ -4605,6 +4738,20 @@ def main():
             "bound_by": tk[f"{key}_bound_by"],
             "library_ms": None,
         })
+    bn = batchnorm[str(BN_WIDTHS[0])]
+    kernels.append({
+        "name": bt.KERNEL,
+        "route": "cuda",
+        "source": f"season_nerf_torch/csrc/{bt.KERNEL}.cu",
+        "replaces": "season_nerf_tpu/models/siren.py:141",
+        "launches": sum(n for n, _ in bn_launches.values()),
+        "max_abs_err": max(r["gaps"]["y"] for r in batchnorm.values()),
+        "ms": bn["column_sums"]["ms"] + bn["dz"]["ms"],
+        "plain_ms": bn["column_sums"]["plain_ms"] + bn["dz"]["plain_ms"],
+        "bound_ms": bn["column_sums"]["bound_ms"] + bn["dz"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
     fwd = sine["fwd[bf16]"]         # what every bf16 SineLayer launches
     kernels.append({
         "name": fm.KERNEL,
@@ -4631,7 +4778,8 @@ def main():
                    "reference": reference, "movie": movie,
                    "export": export, "mesh": mesh, "tools": tools,
                    "train_kernels": train_kernels, "gemms": gemms,
-                   "sine": sine, "degrees": degrees, "training": training,
+                   "sine": sine, "batchnorm": batchnorm,
+                   "degrees": degrees, "training": training,
                    "hierarchical": hierarchical, "hsluv": hsluv,
                    "validation": validation,
                    "evaluation": evaluation, "real_site": real_site,

@@ -27,14 +27,26 @@
 // __float2bfloat16_rn, the round-to-nearest-even of torch's
 // .to(torch.bfloat16).
 //
+// The folded variants (fast_sine_fwd_bn, fast_sine_bwd_bn) serve a training
+// SineLayer with BatchNorm in bf16 (ops/batchnorm_train.py): the same
+// device functions and store, the BatchNorm's per-column normalisation
+// before the polynomial, and the same bytes a launch as the plain variants
+// (float32 x and bf16 y; float32 x, bf16 g and float32 dx).  The backward
+// also takes the BatchNorm backward's two column sums, so it is row-tiled
+// (columns.cuh) and its partial sums are merged by a second, small kernel
+// of the same call.  The plain variants above are not touched by them.
+//
 // The plain C interface (ctypes, ops/fast_math.py): fast_sine_fwd_launch,
-// fast_sine_bwd_launch, each returning a cudaError_t; the caller checks n
-// below 2^31.
+// fast_sine_bwd_launch, fast_sine_fwd_bn_launch, fast_sine_bwd_bn_launch,
+// each returning a cudaError_t, and fast_sine_bwd_bn_blocks; the caller of
+// the plain variants checks n below 2^31 (the folded ones index in 64
+// bits).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "columns.cuh"
 #include "fast_sin.cuh"
 
 namespace {
@@ -58,41 +70,8 @@ __device__ __forceinline__ float slope(float x) {
   return kCos ? -fast_sin(x) : fast_cos(x);
 }
 
-__device__ __forceinline__ void load8(const float* p, float (&v)[kVec]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&v)[kVec]) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p,
-                                       const float (&v)[kVec]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
+using cols::load8;
+using cols::store8;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -143,6 +122,119 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int64_t i = units * kVec + u - vector_blocks(units) * kThreads;
   if (i < n) dx[i] = to_float(g[i]) * slope<kCos>(x[i]);
+}
+
+// The folded variants, for a training SineLayer with BatchNorm in bf16
+// (ops/batchnorm_train.py): the sine takes the BatchNorm's output
+// (x - mean) * mul + beta of each element's column, in flax's order and
+// rounded after each step as the plain passes round it (no contraction into
+// an FMA), so that the sine's argument is theirs.  stats is [5][C]: the
+// columns' mean, rstd, mul = rstd * scale, ... (csrc/batchnorm_train.cu).
+// x is the float32 z.  V = 8 consecutive elements a thread where C is a
+// multiple of 8 (every pointer then 16-byte aligned), else V = 1
+// (columns.cuh).
+__device__ __forceinline__ float normalised(float x, float mean, float mul,
+                                            float beta) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(x, mean), mul), beta);
+}
+
+// y = fast_sin(normalised(x)) in bf16; blocks as fast_sine_fwd's vector
+// blocks, the column's mean, mul and beta read through the cache.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    fast_sine_fwd_bn(const float* __restrict__ x,
+                     __nv_bfloat16* __restrict__ y,
+                     const float* __restrict__ stats,
+                     const float* __restrict__ beta, int64_t units, int C) {
+  const int64_t u = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (u >= units) return;
+  const int c = int(u * V % C);
+  float v[V], m[V], k[V], b[V];
+  cols::load<V>(x + u * V, v);
+  cols::load<V>(stats + c, m);
+  cols::load<V>(stats + 2 * C + c, k);
+  cols::load<V>(beta + c, b);
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    v[i] = fast_sin(normalised(v[i], m[i], k[i], b[i]));
+  cols::store<V>(y + u * V, v);
+}
+
+// du = g * fast_cos(normalised(x)) in float32 (g bf16), and the BatchNorm
+// backward's column sums a = sum du and b = sum du * xhat, xhat = (x -
+// mean) * rstd, as rstd * sum du * (x - mean): a row-tiled pass
+// (columns.cuh), two rows a lane in flight, each block's partial sums into
+// part[block][2][C].
+template <int V>
+__global__ void __launch_bounds__(cols::kThreads)
+    fast_sine_bwd_bn(const float* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ g,
+                     float* __restrict__ dx, float* __restrict__ part,
+                     const float* __restrict__ stats,
+                     const float* __restrict__ beta, int64_t rows, int C) {
+  __shared__ cols::Partial<V> sh;
+  const cols::Tile t = cols::tile<V>(C, rows);
+  float a[V] = {}, b[V] = {};
+  if (t.lane < t.lanes) {
+    const int c = t.c0 + t.group * V;
+    float m[V], k[V], be[V];
+    cols::load<V>(stats + c, m);
+    cols::load<V>(stats + 2 * C + c, k);
+    cols::load<V>(beta + c, be);
+    auto step = [&](float (&v)[V], const float (&w)[V]) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = __fsub_rn(v[i], m[i]);
+        const float du =
+            w[i] * fast_cos(__fadd_rn(__fmul_rn(d, k[i]), be[i]));
+        a[i] += du;
+        b[i] = fmaf(du, d, b[i]);
+        v[i] = du;
+      }
+    };
+    int64_t row = t.row0;
+    for (; row + t.stride < t.row1; row += 2 * t.stride) {
+      const int64_t o0 = row * C + c, o1 = o0 + t.stride * C;
+      float v0[V], w0[V], v1[V], w1[V];
+      cols::load<V>(x + o0, v0);
+      cols::load<V>(g + o0, w0);
+      cols::load<V>(x + o1, v1);
+      cols::load<V>(g + o1, w1);
+      step(v0, w0);
+      cols::store<V>(dx + o0, v0);
+      step(v1, w1);
+      cols::store<V>(dx + o1, v1);
+    }
+    if (row < t.row1) {
+      const int64_t o = row * C + c;
+      float v[V], w[V];
+      cols::load<V>(x + o, v);
+      cols::load<V>(g + o, w);
+      step(v, w);
+      cols::store<V>(dx + o, v);
+    }
+    float r[V];
+    cols::load<V>(stats + C + c, r);
+#pragma unroll
+    for (int i = 0; i < V; ++i) b[i] *= r[i];
+  }
+  cols::store_partial<V>(t, C, a, b, sh, part);
+}
+
+// the merged sums, a then b, in float32
+struct WriteSums {
+  float* out;
+  int C;
+  __device__ void operator()(int j, double a, double b) const {
+    out[j] = float(a);
+    out[C + j] = float(b);
+  }
+};
+
+// the folded launches' checks: n = rows * C elements, and where C is a
+// multiple of 8 (8 columns a thread) every pointer 16-byte aligned
+bool takes_bn(long long n, int C) {
+  return n > 0 && cols::takes_width<1>(C) && n % C == 0;
 }
 
 bool aligned(const void* p) {
@@ -209,6 +301,75 @@ int fast_sine_bwd_launch(const void* x, const void* g, void* dx,
       fast_sine_bwd<false><<<grid, kThreads, 0, s>>>(xf, gf, d, n, units);
   }
   return int(cudaGetLastError());
+}
+
+// The folded forward: y[r][c] = fast_sin((x[r][c] - mean[c]) * mul[c] +
+// beta[c]) in bf16, n = rows * C elements.
+int fast_sine_fwd_bn_launch(const void* x, void* y, const void* stats,
+                            const void* beta, long long n, int C,
+                            void* stream) {
+  if (n <= 0) return 0;
+  const bool vec = C % kVec == 0;
+  if (!takes_bn(n, C) || (vec && !(aligned(x) && aligned(y) &&
+                                   aligned(stats) && aligned(beta))))
+    return int(cudaErrorInvalidValue);
+  const int64_t units = vec ? n / kVec : n;
+  const unsigned grid = unsigned(vector_blocks(units));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xf = static_cast<const float*>(x);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  const auto* st = static_cast<const float*>(stats);
+  const auto* be = static_cast<const float*>(beta);
+  if (vec)
+    fast_sine_fwd_bn<kVec><<<grid, kThreads, 0, s>>>(xf, yb, st, be, units,
+                                                     C);
+  else
+    fast_sine_fwd_bn<1><<<grid, kThreads, 0, s>>>(xf, yb, st, be, units, C);
+  return int(cudaGetLastError());
+}
+
+// The partial rows the folded backward leaves for n = rows * C elements
+// on the current card (the rows of its `part`); -1 for a shape it does
+// not take.
+int fast_sine_bwd_bn_blocks(long long n, int C) {
+  if (!takes_bn(n, C)) return -1;
+  return C % kVec == 0
+             ? cols::row_tiled_blocks<kVec>(fast_sine_bwd_bn<kVec>, n / C, C)
+             : cols::row_tiled_blocks<1>(fast_sine_bwd_bn<1>, n / C, C);
+}
+
+// The folded backward: dx = g * fast_cos(the forward's argument) in
+// float32 (g bf16), then ab = [sum dx; sum dx * xhat] of each column
+// (float32 [2][C]), merged from part ([blocks][2][C], blocks from
+// fast_sine_bwd_bn_blocks) in a fixed order.
+int fast_sine_bwd_bn_launch(const void* x, const void* g, void* dx,
+                            void* part, void* ab, const void* stats,
+                            const void* beta, long long n, int C,
+                            int blocks, void* stream) {
+  if (n <= 0) return 0;
+  const bool vec = C % kVec == 0;
+  if (!takes_bn(n, C) || blocks <= 0 ||
+      (vec && !(aligned(x) && aligned(g) && aligned(dx) && aligned(stats) &&
+                aligned(beta))))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  auto* d = static_cast<float*>(dx);
+  auto* p = static_cast<float*>(part);
+  const auto* st = static_cast<const float*>(stats);
+  const auto* be = static_cast<const float*>(beta);
+  if (vec)
+    fast_sine_bwd_bn<kVec><<<dim3(blocks, cols::slabs<kVec>(C)),
+                             cols::kThreads, 0, s>>>(xf, gb, d, p, st, be,
+                                                     n / C, C);
+  else
+    fast_sine_bwd_bn<1><<<dim3(blocks, cols::slabs<1>(C)), cols::kThreads,
+                          0, s>>>(xf, gb, d, p, st, be, n / C, C);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  return int(cols::merge(p, blocks, C, WriteSums{static_cast<float*>(ab), C},
+                         s));
 }
 
 const char* fast_sine_error_string(int err) {

@@ -17,9 +17,16 @@ batch``); ``BatchNorm1d``'s own update, which uses the unbiased variance,
 never runs.  The sine's gradient is the cosine (``ops/fast_math``: one
 kernel launch a direction on a card, the cast to bf16 inside it).
 
-The layer's BatchNorm forward is the span ``siren.batchnorm`` and its sine
-``siren.sine`` (``utils/trace``); autograd's backward of the BatchNorm
-lies in neither.
+A training layer with BatchNorm and the polynomial sine whose z is bf16
+on a card, of any width, runs BatchNorm and sine as ``ops/batchnorm_train``'s
+Function: hand-written kernels both ways, the normalisation folded into the
+sine's launches.  Every other layer, and every CPU tensor, takes :meth:`SineLayer.bn_train` or
+:meth:`SineLayer.bn_eval` and then the sine, with autograd's backward.
+
+Spans (``utils/trace``): the BatchNorm forward is ``siren.batchnorm``, the
+sine ``siren.sine`` both ways; the kernels' dz pass is
+``siren.batchnorm_bwd``, and autograd's backward of ``bn_train`` lies under
+no span.
 
 Under a training mesh (``parallel/mesh.py``; the trainer sets the layer's
 ``mesh``) the statistics are those of the global batch, as GSPMD computes
@@ -35,12 +42,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from season_nerf_torch.ops import batchnorm_train
+from season_nerf_torch.ops.batchnorm_train import BN_EPS, update_running
 from season_nerf_torch.ops.fast_math import fast_sin
 from season_nerf_torch.parallel.mesh import all_reduce_sum
 from season_nerf_torch.utils import trace
-
-BN_EPS = 1e-5
-BN_MOMENTUM = 0.99      # flax's; torch's BatchNorm1d momentum 0.01
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -111,15 +117,15 @@ class SineLayer(nn.Module):
                 self.mesh)
             mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
         var = torch.clamp(sq - mean * mean, min=0.0)
-        with torch.no_grad():
-            keep = BN_MOMENTUM
-            n.running_mean.copy_(keep * n.running_mean + (1 - keep) * mean)
-            n.running_var.copy_(keep * n.running_var + (1 - keep) * var)
+        update_running(n.running_mean, n.running_var, mean, var)
         mul = torch.rsqrt(var + BN_EPS) * n.weight.float()
         return (z - mean) * mul + n.bias.float()
 
     def forward(self, x, extra=None):
         z = self.omega_0 * self.linear(x, extra, self.dtype)
+        if (self.training and self.norm is not None and self.fast_sine
+                and z.is_cuda and z.dtype == torch.bfloat16):
+            return batchnorm_train.batchnorm_sine(z, self.norm, self.mesh)
         z = z.float()
         if self.norm is not None:
             with trace.span("siren.batchnorm"):

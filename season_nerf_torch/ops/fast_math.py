@@ -33,6 +33,16 @@ As in the JAX package, the derivative of one is the other, not the autograd
 of the polynomial: d fast_sin = fast_cos, d fast_cos = -fast_sin, to any
 order.  Each backward is the span ``siren.sine`` (``utils/trace``), as the
 forward is in ``SineLayer``.
+
+:func:`sine_bn_fwd` and :func:`sine_bn_bwd` are the folded variant, for a
+training ``SineLayer`` with BatchNorm in bf16 on a card
+(``ops/batchnorm_train``, which holds their plain version): the kernel's
+own launches with each column's ``(x - mean) * mul + shift`` taken before
+the polynomial, the backward also summing ``du`` and ``du * xhat`` by
+column.  They move the plain variants' bytes (float32 x, bf16 y; float32
+x, bf16 g, float32 dx), count in ``launches``, and are no operators: the
+exported programs and the plain versions keep ``season_nerf::fast_sine``
+and ``fast_sine_grad``.
 """
 
 from __future__ import annotations
@@ -174,6 +184,13 @@ def _library():
         lib.fast_sine_bwd_launch.argtypes = [P, P, P, L, I, I, P]
         lib.fast_sine_fwd_launch.restype = I
         lib.fast_sine_bwd_launch.restype = I
+        lib.fast_sine_fwd_bn_launch.argtypes = [P, P, P, P, L, I, P]
+        lib.fast_sine_bwd_bn_launch.argtypes = [P, P, P, P, P, P, P, L, I, I,
+                                                P]
+        lib.fast_sine_bwd_bn_blocks.argtypes = [L, I]
+        for fn in (lib.fast_sine_fwd_bn_launch, lib.fast_sine_bwd_bn_launch,
+                   lib.fast_sine_bwd_bn_blocks):
+            fn.restype = I
         lib.fast_sine_error_string.argtypes = [I]
         lib.fast_sine_error_string.restype = ctypes.c_char_p
     return lib
@@ -232,6 +249,45 @@ def _sine_grad_op_cuda(x, g, cosine):
         _launch("bwd", x, g, dx,
                 flags=(int(cosine), int(g.dtype == torch.bfloat16)))
     return dx
+
+
+# The folded launches of a training SineLayer's BatchNorm
+# (ops/batchnorm_train.py holds their plain version and their checks): x
+# the float32 z [rows, C], stats its columns' statistics ([5, C]: mean,
+# rstd, mul, ...), beta the BatchNorm's shift.
+def sine_bn_fwd(x, stats, beta):
+    """bf16 fast_sin((x - mean) * mul + beta), column by column: one
+    launch."""
+    y = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    _launch("fwd_bn", x, y, stats, beta, flags=(x.shape[1],))
+    return y
+
+
+def sine_bn_bwd(x, g, stats, beta):
+    """-> (du, ab): du = g * fast_cos((x - mean) * mul + beta) in float32
+    (g bf16), and ab = [sum du; sum du * xhat] of each column, xhat = (x -
+    mean) * rstd, merged in a fixed order: one launch (a pass and the
+    merge of its partial sums)."""
+    rows, c = x.shape
+    lib = _library()
+    with torch.cuda.device(x.device):
+        blocks = lib.fast_sine_bwd_bn_blocks(x.numel(), c)
+    if blocks <= 0:
+        raise RuntimeError(f"fast_sine bwd_bn: no grid for {rows} x {c}")
+    du = torch.empty_like(x)
+    part = x.new_empty((blocks, 2, c))
+    ab = x.new_empty((2, c))
+    _launch("bwd_bn", x, dense(g), du, part, ab, stats, beta,
+            flags=(c, blocks))
+    return du, ab
+
+
+def dense(t):
+    """``t``, or a copy of it, contiguous and 16-byte aligned, as the
+    folded launches' vector loads take it."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def fast_sin(x: torch.Tensor,

@@ -21,7 +21,10 @@ whether or not spans are on: ``k3.launches`` (``ops/fused_trunk``
 ``trunk_apply.launches``), ``k1.launches`` and ``k2.launches``
 (``ops/fused_train`` ``trunk_fwd.launches``, ``trunk_bwd.launches``) and
 ``fast_sine.launches`` (``ops/fast_math`` ``launches``, the polynomial
-sine's kernel in both directions).
+sine's kernel in both directions, the BatchNorm's folded launches among
+them) and ``batchnorm.launches`` (``ops/batchnorm_train`` ``launches``: a
+training BatchNorm's column-sum pass forward and its dz pass backward,
+which runs under the span ``siren.batchnorm_bwd``).
 """
 
 from __future__ import annotations
@@ -113,8 +116,10 @@ class _Open:
 
 def counters() -> Dict[str, int]:
     """The kernels' launches since the process started, by name."""
-    from season_nerf_torch.ops import fast_math, fused_train, fused_trunk
+    from season_nerf_torch.ops import (batchnorm_train, fast_math,
+                                       fused_train, fused_trunk)
     return {"k3.launches": fused_trunk.trunk_apply.launches,
             "k1.launches": fused_train.trunk_fwd.launches,
             "k2.launches": fused_train.trunk_bwd.launches,
-            "fast_sine.launches": fast_math.launches}
+            "fast_sine.launches": fast_math.launches,
+            "batchnorm.launches": batchnorm_train.launches}

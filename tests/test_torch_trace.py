@@ -17,6 +17,7 @@ import torch
 from season_nerf_torch.config import Config
 from season_nerf_torch.models.siren import SineLayer
 from season_nerf_torch.models.tnerf import model_from_config
+from season_nerf_torch.ops import batchnorm_train as bt
 from season_nerf_torch.ops import fast_math
 from season_nerf_torch.ops import fused_train as ftr
 from season_nerf_torch.ops import fused_trunk as ft
@@ -141,15 +142,18 @@ def test_counters_read_the_launch_counters(monkeypatch):
     assert trace.counters() == {"k3.launches": ft.trunk_apply.launches,
                                 "k1.launches": ftr.trunk_fwd.launches,
                                 "k2.launches": ftr.trunk_bwd.launches,
-                                "fast_sine.launches": fast_math.launches}
+                                "fast_sine.launches": fast_math.launches,
+                                "batchnorm.launches": bt.launches}
     monkeypatch.setattr(ftr.trunk_fwd, "launches",
                         ftr.trunk_fwd.launches + 2)
     monkeypatch.setattr(ftr.trunk_bwd, "launches",
                         ftr.trunk_bwd.launches + 1)
     monkeypatch.setattr(fast_math, "launches", fast_math.launches + 3)
+    monkeypatch.setattr(bt, "launches", bt.launches + 4)
     assert trace.counters()["k1.launches"] == ftr.trunk_fwd.launches
     assert trace.counters()["k2.launches"] == ftr.trunk_bwd.launches
     assert trace.counters()["fast_sine.launches"] == fast_math.launches
+    assert trace.counters()["batchnorm.launches"] == bt.launches
     assert not hasattr(ftr.gemm_bf16, "launches")
 
 
@@ -270,6 +274,39 @@ def test_a_train_step_emits_its_phases_and_the_siren_spans(on):
                                                   "train.backward"}
     assert {under(x) for x in s["siren.batchnorm"]} == {"train.forward"}
     assert "k1.launch" not in s and "k2.launch" not in s
+
+
+def test_the_batchnorm_functions_spans_lie_in_their_phases(on):
+    """The training BatchNorm's Function (its plain version here; the
+    kernels open the same spans): ``siren.batchnorm`` and ``siren.sine``
+    under the forward, and backward ``siren.sine`` then the dz pass's
+    ``siren.batchnorm_bwd``, under ``train.backward`` and in neither
+    ``siren.sine`` nor ``siren.batchnorm``, so that the readers of those
+    two keep their meaning."""
+    norm = torch.nn.BatchNorm1d(16)
+    z = torch.randn(40, 16).bfloat16().requires_grad_()
+    with trace.span("train.forward"):
+        y = bt.batchnorm_sine(z, norm, plain=True)
+    with trace.span("train.backward"):
+        y.float().sum().backward()
+    spans = trace.drain()
+    s = _by_name(spans)
+    ids = {x.id: x for x in spans}
+
+    def ancestors(x):
+        out = []
+        while x.parent is not None:
+            x = ids[x.parent]
+            out.append(x.name)
+        return out
+
+    assert [ancestors(x) for x in s["siren.batchnorm"]] == [["train.forward"]]
+    assert sorted(ancestors(x)[-1] for x in s["siren.sine"]) \
+        == ["train.backward", "train.forward"]
+    dz, = s["siren.batchnorm_bwd"]
+    assert ancestors(dz) == ["train.backward"]
+    sine_back, = [x for x in s["siren.sine"] if x.parent == dz.parent]
+    assert sine_back.end <= dz.start
 
 
 @pytest.mark.parametrize("strict", [False, True])
