@@ -32,7 +32,8 @@ Under a training mesh (``parallel/mesh.py``; the trainer sets the layer's
 ``mesh``) the statistics are those of the global batch, as GSPMD computes
 them for the JAX package: one all-reduce of ``[sum z, sum z^2, rows]``,
 then the same fast variance and the same running update, so the running
-statistics stay identical on every rank.
+statistics stay identical on every rank.  ``ops/batchnorm_train``'s
+``batch_stats`` holds that arithmetic for both routes.
 """
 
 from __future__ import annotations
@@ -43,9 +44,9 @@ import torch
 from torch import nn
 
 from season_nerf_torch.ops import batchnorm_train
-from season_nerf_torch.ops.batchnorm_train import BN_EPS, update_running
+from season_nerf_torch.ops.batchnorm_train import (BN_EPS, batch_stats,
+                                                   update_running)
 from season_nerf_torch.ops.fast_math import fast_sin
-from season_nerf_torch.parallel.mesh import all_reduce_sum
 from season_nerf_torch.utils import trace
 
 
@@ -107,16 +108,8 @@ class SineLayer(nn.Module):
         """Batch statistics (flax's fast variance) of the global batch,
         and the running update in place."""
         n = self.norm
-        if self.mesh is None:
-            mean = z.mean(0)
-            sq = torch.mean(z * z, 0)
-        else:
-            c = z.shape[1]
-            sums = all_reduce_sum(torch.cat(
-                [z.sum(0), (z * z).sum(0), z.new_full((1,), z.shape[0])]),
-                self.mesh)
-            mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
-        var = torch.clamp(sq - mean * mean, min=0.0)
+        mean, d, _ = batch_stats(z, self.mesh)
+        var = torch.clamp(d, min=0.0)
         update_running(n.running_mean, n.running_var, mean, var)
         mul = torch.rsqrt(var + BN_EPS) * n.weight.float()
         return (z - mean) * mul + n.bias.float()

@@ -20,14 +20,25 @@ and ``(z - mean) * mul + shift`` in flax's order, ``mul = rsqrt(var + eps)
   variance's term dropped in a column whose fast variance was clamped, as
   the clamp's gradient drops it (span ``siren.batchnorm_bwd``).
 
+The folded launches (:func:`sine_bn_fwd`, :func:`sine_bn_bwd`) are the
+sine's kernel's own, with each column's ``(x - mean) * mul + shift`` taken
+before the polynomial: they move the plain variants' bytes (float32 x,
+bf16 y; float32 x, bf16 g, float32 dx) and are no operators, so that the
+exported programs and the plain versions keep ``season_nerf::fast_sine``
+and ``fast_sine_grad``.  The columns' statistics they take are this
+module's ``[5, C]`` layout (see ``_plain_stats``).
+
 It saves the float32 z and the columns' statistics (autograd of
 ``bn_train`` also saves ``z - mean`` and the sine's float32 input).
 
-Under a training mesh the statistics are the global batch's: one
-all-reduce of ``[sum z, sum z^2, rows]`` forward, then the finish; one of
-``[a, b]`` backward.  The gradients returned for the scale and shift are
-the rank's own ``b`` and ``a``: ``parallel.mesh.all_reduce_grads`` sums
-them over the ranks afterwards, as it does autograd's.
+:func:`batch_stats` is flax's batch statistics, the one copy that both
+``models/siren.py``'s ``bn_train`` and the plain version take.  Under a
+training mesh the statistics are the global batch's: one all-reduce of
+``[sum z, sum z^2, rows]`` forward (``parallel/mesh.py``), then the
+finish; one of ``[a, b]`` backward.  The gradients returned for the scale
+and shift are the rank's own ``b`` and ``a``:
+``parallel.mesh.all_reduce_grads`` sums them over the ranks afterwards, as
+it does autograd's.
 
 The kernels take every bf16 [rows, C] z on a card, any C (8 columns a
 thread where C is a multiple of 8, one elsewhere); ``models/siren.py``
@@ -36,22 +47,21 @@ sends every such training layer here, and every float32 or CPU one through
 ``_plain_sine``, ``_plain_sine_grad``, ``_plain_dz``), the same arithmetic
 in PyTorch passes on any device: the tests hold the kernels to it on the
 card and it to autograd of ``bn_train`` on the CPU.
-``launches`` counts the column-sum and dz launches (``utils/trace`` reads
-it as ``batchnorm.launches``): 16 and 8 in a default training step; the
-sine's launches count in ``fast_math.launches``, and those of its folded
-variants made here also in ``sine_launches`` (16 forward and 8 backward
+The column-sum and dz launches count as ``batchnorm.launches``
+(``utils/trace``): 16 and 8 in a default training step; the folded sine's
+as ``fast_sine.launches``, with the sine's own (16 forward and 8 backward
 in a default step).
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
-import torch.distributed as dist
 
 from season_nerf_torch.ops import fast_math as fm
+from season_nerf_torch.ops.cuda_build import Library
+from season_nerf_torch.parallel.mesh import all_reduce_sum
 from season_nerf_torch.utils import trace
 
 BN_EPS = 1e-5
@@ -59,52 +69,18 @@ BN_MOMENTUM = 0.99      # flax's; torch's BatchNorm1d momentum 0.01
 MAX_WIDTH = 65535 * 256     # csrc/columns.cuh: 65,535 slabs of 256 columns
 
 KERNEL = "batchnorm_train"
-launches = 0            # column sums and dz
-sine_launches = 0       # the folded sine's, also in fast_math.launches
-_lock = threading.Lock()
-
-
-def _library():
-    from season_nerf_torch.ops import cuda_build
-    lib = cuda_build.load(KERNEL)
-    if lib.bn_stats_launch.argtypes is None:
-        P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_float)
-        lib.bn_stats_blocks.argtypes = [L, I]
-        lib.bn_stats_launch.argtypes = [P] * 8 + [L, I, I, F, F, F, P]
-        lib.bn_finish_launch.argtypes = [P] * 5 + [I, F, F, F, P]
-        lib.bn_dz_launch.argtypes = [P] * 5 + [L, I, P]
-        for fn in (lib.bn_stats_blocks, lib.bn_stats_launch,
-                   lib.bn_finish_launch, lib.bn_dz_launch):
-            fn.restype = I
-        lib.batchnorm_train_error_string.argtypes = [I]
-        lib.batchnorm_train_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _count(what):
-    global launches, sine_launches
-    with _lock:
-        if what == "sine":
-            sine_launches += 1
-        else:
-            launches += 1
-
-
-def _launch(name, device, *args, counted=True):
-    """``<name>_launch(*args, stream)`` on ``device``'s current stream, a
-    tensor passed as its pointer; raises on an error."""
-    lib = _library()
-    with torch.cuda.device(device):
-        err = getattr(lib, f"{name}_launch")(
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} {name} launch failed: "
-                           f"{lib.batchnorm_train_error_string(err).decode()}")
-    if counted:
-        _count("batchnorm")
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+LIB = Library(KERNEL, {
+    "bn_stats_blocks": (_L, _I),
+    "bn_stats_launch": (_P,) * 8 + (_L, _I, _I, _F, _F, _F, _P),
+    "bn_finish_launch": (_P,) * 5 + (_I, _F, _F, _F, _P),
+    "bn_dz_launch": (_P,) * 5 + (_L, _I, _P)})
+# the sine's folded launches, in csrc/fast_sine.cu beside its own
+SINE_LIB = Library(fm.KERNEL, {
+    "fast_sine_bwd_bn_blocks": (_L, _I),
+    "fast_sine_fwd_bn_launch": (_P,) * 4 + (_L, _I, _P),
+    "fast_sine_bwd_bn_launch": (_P,) * 7 + (_L, _I, _I, _P)})
 
 
 def _check(z, *params):
@@ -133,6 +109,24 @@ def update_running(running_mean, running_var, mean, var):
         running_var.copy_(keep * running_var + (1 - keep) * var)
 
 
+def batch_stats(z, mesh):
+    """-> (mean, E[z^2] - E[z]^2, N) of the [rows, C] ``z`` over the global
+    batch of N rows, differentiable: flax's statistics before the fast
+    variance's clamp at 0, which the caller takes.  Without a mesh N is
+    this process's rows, an int."""
+    if mesh is None:
+        n = z.shape[0]
+        mean = z.mean(0)
+        sq = torch.mean(z * z, 0)
+    else:
+        c = z.shape[1]
+        sums = all_reduce_sum(torch.cat(
+            [z.sum(0), (z * z).sum(0), z.new_full((1,), z.shape[0])]), mesh)
+        n = sums[-1]
+        mean, sq = sums[:c] / n, sums[c:2 * c] / n
+    return mean, sq - mean * mean, n
+
+
 # --- the plain version ------------------------------------------------------
 # stats is [5, C]: mean, rstd, mul, rstd where the fast variance was not
 # clamped (else 0), and 1 / N, N the global batch's rows
@@ -140,24 +134,14 @@ def _plain_stats(z, scale, running_mean, running_var, mesh):
     """-> (the float32 z, stats), ``bn_train``'s arithmetic; the running
     statistics updated."""
     zf = z.float()
-    if mesh is None:
-        n = zf.new_tensor(float(zf.shape[0]))
-        mean = zf.mean(0)
-        sq = torch.mean(zf * zf, 0)
-    else:
-        c = zf.shape[1]
-        sums = torch.cat([zf.sum(0), (zf * zf).sum(0),
-                          zf.new_full((1,), zf.shape[0])])
-        dist.all_reduce(sums, group=mesh.group)
-        n = sums[-1]
-        mean, sq = sums[:c] / n, sums[c:2 * c] / n
-    d = sq - mean * mean
+    mean, d, n = batch_stats(zf, mesh)
     var = torch.clamp(d, min=0.0)
     update_running(running_mean, running_var, mean, var)
     rstd = torch.rsqrt(var + BN_EPS)
+    inv_n = 1 / torch.as_tensor(n, dtype=zf.dtype, device=zf.device)
     return zf, torch.stack([mean, rstd, rstd * scale,
                             torch.where(d >= 0, rstd, 0.0),
-                            (1 / n).expand_as(mean)])
+                            inv_n.expand_as(mean)])
 
 
 def _plain_sine(zf, stats, shift):
@@ -182,27 +166,66 @@ def _plain_dz(zf, du, stats, ab):
 
 
 # --- the kernels ------------------------------------------------------------
-def _kernel_stats(z, scale, running_mean, running_var, mesh):
-    z = fm.dense(z)
-    rows, c = z.shape
-    dev = z.device
-    with torch.cuda.device(dev):
-        blocks = _library().bn_stats_blocks(z.numel(), c)
+def dense(t):
+    """``t``, or a copy of it, contiguous and 16-byte aligned, as the
+    kernels' vector loads take it."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _blocks(lib, fn, x):
+    """The partial rows of the column sums of the [rows, C] ``x``."""
+    with torch.cuda.device(x.device):   # the grid fills x's card
+        blocks = lib.call(fn, x.numel(), x.shape[1])
     if blocks <= 0:
-        raise RuntimeError(f"{KERNEL}: no grid for {rows} x {c}")
+        raise RuntimeError(f"{fn}: no grid for {x.shape[0]} x {x.shape[1]}")
+    return blocks
+
+
+def _kernel_stats(z, scale, running_mean, running_var, mesh):
+    z = dense(z)
+    c = z.shape[1]
+    dev = z.device
+    blocks = _blocks(LIB, "bn_stats_blocks", z)
     zf = torch.empty(z.shape, dtype=torch.float32, device=dev)
     part = zf.new_empty((blocks, 2, c))
     stats = zf.new_empty((5, c))
     consts = (BN_MOMENTUM, 1 - BN_MOMENTUM, BN_EPS)
     sums = None if mesh is None else zf.new_empty(2 * c + 1,
                                                   dtype=torch.float64)
-    _launch("bn_stats", dev, z, zf, part, sums, stats, scale, running_mean,
-            running_var, z.numel(), c, blocks, *consts)
+    LIB.launch("bn_stats_launch", dev, z, zf, part, sums, stats, scale,
+               running_mean, running_var, z.numel(), c, blocks, *consts,
+               counter="batchnorm.launches")
     if mesh is not None:
-        dist.all_reduce(sums, group=mesh.group)
-        _launch("bn_finish", dev, sums, stats, scale, running_mean,
-                running_var, c, *consts, counted=False)
+        LIB.launch("bn_finish_launch", dev, all_reduce_sum(sums, mesh),
+                   stats, scale, running_mean, running_var, c, *consts)
     return zf, stats
+
+
+def sine_bn_fwd(x, stats, beta):
+    """bf16 fast_sin((x - mean) * mul + beta), column by column, of the
+    float32 [rows, C] ``x``: one launch."""
+    y = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    SINE_LIB.launch("fast_sine_fwd_bn_launch", x.device, x, y, stats, beta,
+                    x.numel(), x.shape[1], counter="fast_sine.launches")
+    return y
+
+
+def sine_bn_bwd(x, g, stats, beta):
+    """-> (du, ab): du = g * fast_cos((x - mean) * mul + beta) in float32
+    (g bf16), and ab = [sum du; sum du * xhat] of each column, xhat = (x -
+    mean) * rstd, merged in a fixed order: one launch (a pass and the
+    merge of its partial sums)."""
+    c = x.shape[1]
+    blocks = _blocks(SINE_LIB, "fast_sine_bwd_bn_blocks", x)
+    du = torch.empty_like(x)
+    part = x.new_empty((blocks, 2, c))
+    ab = x.new_empty((2, c))
+    SINE_LIB.launch("fast_sine_bwd_bn_launch", x.device, x, dense(g), du,
+                    part, ab, stats, beta, x.numel(), c, blocks,
+                    counter="fast_sine.launches")
+    return du, ab
 
 
 def _kernel_sine_grad(zf, g, stats, shift):
@@ -210,26 +233,18 @@ def _kernel_sine_grad(zf, g, stats, shift):
         raise ValueError(f"the BatchNorm kernels take a bf16 gradient of "
                          f"shape {tuple(zf.shape)}, got {g.dtype} "
                          f"{tuple(g.shape)}")
-    du_ab = fm.sine_bn_bwd(zf, g, stats, shift)
-    _count("sine")
-    return du_ab
-
-
-def _kernel_sine(zf, stats, shift):
-    y = fm.sine_bn_fwd(zf, stats, shift)
-    _count("sine")
-    return y
+    return sine_bn_bwd(zf, g, stats, shift)
 
 
 def _kernel_dz(zf, du, stats, ab):
     dz = torch.empty(zf.shape, dtype=torch.bfloat16, device=zf.device)
-    _launch("bn_dz", zf.device, zf, du, dz, stats, ab, zf.numel(),
-            zf.shape[1])
+    LIB.launch("bn_dz_launch", zf.device, zf, du, dz, stats, ab, zf.numel(),
+               zf.shape[1], counter="batchnorm.launches")
     return dz
 
 
 _PLAIN = (_plain_stats, _plain_sine, _plain_sine_grad, _plain_dz)
-_KERNELS = (_kernel_stats, _kernel_sine, _kernel_sine_grad, _kernel_dz)
+_KERNELS = (_kernel_stats, sine_bn_fwd, _kernel_sine_grad, _kernel_dz)
 
 
 class BatchNormSine(torch.autograd.Function):
@@ -261,11 +276,7 @@ class BatchNormSine(torch.autograd.Function):
         dz = None
         if ctx.needs_input_grad[0]:
             with trace.span("siren.batchnorm_bwd"):
-                ab = local
-                if ctx.mesh is not None:
-                    ab = local.clone()
-                    dist.all_reduce(ab, group=ctx.mesh.group)
-                dz = dz_of(zf, du, stats, ab)
+                dz = dz_of(zf, du, stats, all_reduce_sum(local, ctx.mesh))
         # this rank's sums: all_reduce_grads adds the ranks' afterwards
         return dz, local[1], local[0], None, None, None, None
 

@@ -1,18 +1,26 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA sources with ``nvcc``, load them with ``ctypes``,
+and bind their C functions (:class:`Library`).
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/season_nerf_torch/lib<name>-<digest>.so`` at the repository
 root, the first time it is needed.  The digest covers the source, every
 header in ``csrc/`` and the sine's degree, so an edited source is rebuilt and
 a library is never loaded stale or at another degree.  ``nvcc`` runs with
-``-DFAST_SIN_DEGREE=<d>``, the degree ``ops/fast_math`` read from the
-environment (11 unless ``FAST_SIN_DEGREE`` says 9 or 7: ``csrc/fast_sin.cuh``
-is K0 inside every kernel), and with ``-Xptxas -v``; its report (registers,
-shared memory, spills) is kept beside the library as
-``<name>.deg<d>.ptxas.txt``.
+``-DFAST_SIN_DEGREE=<d>``, the polynomial sine's degree (:data:`DEGREE`,
+read from the environment when this module is imported: 11 unless
+``FAST_SIN_DEGREE`` says 9 or 7; ``csrc/fast_sin.cuh`` is K0 inside every
+kernel, and ``ops/fast_math`` takes its plain version's polynomial by it),
+and with ``-Xptxas -v``; its report (registers, shared memory, spills) is
+kept beside the library as ``<name>.deg<d>.ptxas.txt``.
 
 No ``--use_fast_math``: it would turn ``sinf`` into ``__sinf``, which
 loses accuracy beyond +-pi.
+
+Every ops module reaches its library through a :class:`Library`: it names
+the C functions it calls and their argument types once, as data, and
+:meth:`Library.launch` runs one on a card's current stream, raises with
+the library's own ``<name>_error_string`` and counts the launch into a
+counter of ``utils/trace``.
 """
 
 from __future__ import annotations
@@ -23,10 +31,17 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Mapping, Optional, Sequence
 
-from season_nerf_torch.ops.fast_math import DEGREE
+import torch
 
+from season_nerf_torch.utils import trace
+
+_DEGREE = os.environ.get("FAST_SIN_DEGREE", "11")
+if _DEGREE not in ("11", "9", "7"):
+    raise ValueError(
+        f"FAST_SIN_DEGREE={_DEGREE!r}: valid degrees are [7, 9, 11]")
+DEGREE = int(_DEGREE)
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "season_nerf_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -101,3 +116,56 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build([name])[name]))
     return _loaded[name]
+
+
+class Library:
+    """The C functions of ``csrc/<name>.cu`` that an ops module calls.
+
+    ``signatures`` maps each function's name to its arguments' ctypes, as
+    its C prototype lists them; each returns an ``int`` (a launch's
+    ``cudaError_t``, or a count).  The library is built, loaded and bound
+    on the first call, and every function resolved once."""
+
+    def __init__(self, name: str, signatures: Mapping[str, Sequence]):
+        self.name = name
+        self._signatures = signatures
+        self._fns: Optional[dict] = None
+
+    def _bind(self) -> dict:
+        lib = load(self.name)
+        fns = {}
+        for fn, argtypes in self._signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes, f.restype = list(argtypes), ctypes.c_int
+            fns[fn] = f
+        err = getattr(lib, f"{self.name}_error_string")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        self._error_string = err
+        self._fns = fns
+        return fns
+
+    def call(self, fn: str, *args) -> int:
+        """``fn(*args)``, a tensor passed as its pointer: for the functions
+        that launch nothing (a launch's grid, a tensor map)."""
+        return (self._fns or self._bind())[fn](
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args))
+
+    def launch(self, fn: str, device, *args, counter: Optional[str] = None,
+               context=None) -> None:
+        """``fn(*args, stream)`` on ``device``'s current stream, a tensor
+        passed as its pointer.  Raises ``RuntimeError`` on an error, with
+        the library's text and ``context``; counts one launch into the
+        tracer's ``counter``, if given."""
+        f = (self._fns or self._bind())[fn]
+        with torch.cuda.device(device):     # launch on the tensors' card
+            err = f(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args),
+                    torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} {fn} failed: "
+                f"{self._error_string(err).decode()}"
+                + ("" if context is None else f" ({context})"))
+        if counter is not None:
+            trace.count(counter)

@@ -11,9 +11,9 @@ One round-to-nearest reduction by 2*pi, then an odd polynomial:
 [-pi, pi]: 1.9e-7, 1.2e-5, 5.0e-4); the reduction adds about
 |k| * 2.8e-7 for |x| ~ k * 2*pi.  ``FAST_SIN_DEGREE`` in the environment
 selects one when this module is imported, as in the JAX package; degree 11
-is the default.  The same arithmetic runs inside the CUDA trunk kernels
-(``csrc/fast_sin.cuh``), built at the selected degree
-(``ops/cuda_build``).
+is the default (``ops/cuda_build`` reads it, and builds every CUDA kernel
+at that degree: the same arithmetic runs inside them,
+``csrc/fast_sin.cuh``).
 
 :func:`fast_sin` and :func:`fast_cos` call the operators
 ``season_nerf::fast_sine`` and, for the gradient,
@@ -24,36 +24,25 @@ chain of elementwise passes); for a CUDA tensor one launch of
 K0's, the FMA Horner chain of K1/K2/K3: within about an ulp of the plain
 chain, which rounds after every product and sum.  A bf16 result is cast in
 the same launch, the same round-to-nearest-even as ``.to(torch.bfloat16)``.
-``launches`` counts the kernel's launches (``utils/trace`` reads it as
-``fast_sine.launches``).  The plain versions of K1/K2/K3, the references
-the card's checks hold those kernels to, call :func:`plain_sin` and
-:func:`plain_cos` on every device: they share no code with K0 on the card.
+The kernel's launches count as ``fast_sine.launches`` (``utils/trace``).
+The plain versions of K1/K2/K3, the references the card's checks hold
+those kernels to, call :func:`plain_sin` and :func:`plain_cos` on every
+device: they share no code with K0 on the card.
 
 As in the JAX package, the derivative of one is the other, not the autograd
 of the polynomial: d fast_sin = fast_cos, d fast_cos = -fast_sin, to any
 order.  Each backward is the span ``siren.sine`` (``utils/trace``), as the
 forward is in ``SineLayer``.
-
-:func:`sine_bn_fwd` and :func:`sine_bn_bwd` are the folded variant, for a
-training ``SineLayer`` with BatchNorm in bf16 on a card
-(``ops/batchnorm_train``, which holds their plain version): the kernel's
-own launches with each column's ``(x - mean) * mul + shift`` taken before
-the polynomial, the backward also summing ``du`` and ``du * xhat`` by
-column.  They move the plain variants' bytes (float32 x, bf16 y; float32
-x, bf16 g, float32 dx), count in ``launches``, and are no operators: the
-exported programs and the plain versions keep ``season_nerf::fast_sine``
-and ``fast_sine_grad``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 from typing import Optional
 
 import torch
 
+from season_nerf_torch.ops.cuda_build import DEGREE, Library
 from season_nerf_torch.utils import trace
 
 TWO_PI = 6.283185307179586
@@ -84,11 +73,6 @@ POLYS = {
         0.999833206854273,
     ),
 }
-_DEGREE = os.environ.get("FAST_SIN_DEGREE", "11")
-if _DEGREE not in {str(d) for d in POLYS}:
-    raise ValueError(
-        f"FAST_SIN_DEGREE={_DEGREE!r}: valid degrees are {sorted(POLYS)}")
-DEGREE = int(_DEGREE)
 POLY = POLYS[DEGREE]
 
 
@@ -170,47 +154,11 @@ def _sine_grad_backward(ctx, gg):
 sine_op.register_autograd(_sine_backward, setup_context=_save_x)
 sine_grad_op.register_autograd(_sine_grad_backward, setup_context=_save_x_g)
 
-launches = 0            # of csrc/fast_sine.cu, both directions
-_lock = threading.Lock()
 KERNEL = "fast_sine"
-
-
-def _library():
-    from season_nerf_torch.ops import cuda_build
-    lib = cuda_build.load(KERNEL)
-    if lib.fast_sine_fwd_launch.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fast_sine_fwd_launch.argtypes = [P, P, L, I, I, P]
-        lib.fast_sine_bwd_launch.argtypes = [P, P, P, L, I, I, P]
-        lib.fast_sine_fwd_launch.restype = I
-        lib.fast_sine_bwd_launch.restype = I
-        lib.fast_sine_fwd_bn_launch.argtypes = [P, P, P, P, L, I, P]
-        lib.fast_sine_bwd_bn_launch.argtypes = [P, P, P, P, P, P, P, L, I, I,
-                                                P]
-        lib.fast_sine_bwd_bn_blocks.argtypes = [L, I]
-        for fn in (lib.fast_sine_fwd_bn_launch, lib.fast_sine_bwd_bn_launch,
-                   lib.fast_sine_bwd_bn_blocks):
-            fn.restype = I
-        lib.fast_sine_error_string.argtypes = [I]
-        lib.fast_sine_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name, x, *tensors, flags):
-    """One launch of ``fast_sine_<name>_launch`` over the n elements of the
-    contiguous ``x`` on its card's current stream: x's pointer, then those
-    of ``tensors``, n, ``flags`` and the stream."""
-    lib = _library()
-    with torch.cuda.device(x.device):   # launch on the tensors' card
-        err = getattr(lib, f"fast_sine_{name}_launch")(
-            x.data_ptr(), *(t.data_ptr() for t in tensors), x.numel(),
-            *flags, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fast_sine {name} launch failed: "
-                           f"{lib.fast_sine_error_string(err).decode()}")
-    global launches
-    with _lock:                         # frames in flight on threads
-        launches += 1
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIB = Library(KERNEL, {
+    "fast_sine_fwd_launch": (_P, _P, _L, _I, _I, _P),
+    "fast_sine_bwd_launch": (_P, _P, _P, _L, _I, _I, _P)})
 
 
 def _check(x, g=None):
@@ -236,7 +184,8 @@ def _sine_op_cuda(x, cosine, bf16):
     y = torch.empty(x.shape, dtype=torch.bfloat16 if bf16 else x.dtype,
                     device=x.device)
     if x.numel():
-        _launch("fwd", x, y, flags=(int(cosine), int(bf16)))
+        LIB.launch("fast_sine_fwd_launch", x.device, x, y, x.numel(),
+                   int(cosine), int(bf16), counter="fast_sine.launches")
     return y
 
 
@@ -246,48 +195,10 @@ def _sine_grad_op_cuda(x, g, cosine):
     x, g = x.contiguous(), g.contiguous()
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if x.numel():
-        _launch("bwd", x, g, dx,
-                flags=(int(cosine), int(g.dtype == torch.bfloat16)))
+        LIB.launch("fast_sine_bwd_launch", x.device, x, g, dx, x.numel(),
+                   int(cosine), int(g.dtype == torch.bfloat16),
+                   counter="fast_sine.launches")
     return dx
-
-
-# The folded launches of a training SineLayer's BatchNorm
-# (ops/batchnorm_train.py holds their plain version and their checks): x
-# the float32 z [rows, C], stats its columns' statistics ([5, C]: mean,
-# rstd, mul, ...), beta the BatchNorm's shift.
-def sine_bn_fwd(x, stats, beta):
-    """bf16 fast_sin((x - mean) * mul + beta), column by column: one
-    launch."""
-    y = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    _launch("fwd_bn", x, y, stats, beta, flags=(x.shape[1],))
-    return y
-
-
-def sine_bn_bwd(x, g, stats, beta):
-    """-> (du, ab): du = g * fast_cos((x - mean) * mul + beta) in float32
-    (g bf16), and ab = [sum du; sum du * xhat] of each column, xhat = (x -
-    mean) * rstd, merged in a fixed order: one launch (a pass and the
-    merge of its partial sums)."""
-    rows, c = x.shape
-    lib = _library()
-    with torch.cuda.device(x.device):
-        blocks = lib.fast_sine_bwd_bn_blocks(x.numel(), c)
-    if blocks <= 0:
-        raise RuntimeError(f"fast_sine bwd_bn: no grid for {rows} x {c}")
-    du = torch.empty_like(x)
-    part = x.new_empty((blocks, 2, c))
-    ab = x.new_empty((2, c))
-    _launch("bwd_bn", x, dense(g), du, part, ab, stats, beta,
-            flags=(c, blocks))
-    return du, ab
-
-
-def dense(t):
-    """``t``, or a copy of it, contiguous and 16-byte aligned, as the
-    folded launches' vector loads take it."""
-    if t.is_contiguous() and t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
 
 
 def fast_sin(x: torch.Tensor,

@@ -18,11 +18,11 @@ and the sums over tiles of the per-tile statistics; K2 (:func:`trunk_bwd`,
 gradient of every packed parameter.  Each wrapper runs its plain version
 (:func:`trunk_fwd_reference`, :func:`trunk_bwd_reference`) for a CPU
 tensor, launches its kernel for a CUDA tensor or raises, and counts its
-launches in ``.launches`` (``utils/trace`` reads them as ``k1.launches``
-and ``k2.launches``; each launch is the span ``k1.launch`` or
-``k2.launch``).  :class:`TrunkTrain` joins the two as an
-autograd function; :func:`fused_forward` and :func:`fused_forward_solar`
-are the network forwards the training step calls with a spec.  The bf16
+launches as ``k1.launches`` and ``k2.launches`` (``utils/trace``; each
+launch is the span ``k1.launch`` or ``k2.launch``).  :class:`TrunkTrain`
+joins the two as an autograd function; :func:`fused_forward` and
+:func:`fused_forward_solar` are the network forwards the training step
+calls with a spec.  The bf16
 GEMM inside both (TMA + ``wgmma``) is bound alone as :func:`gemm_bf16`, for
 tests and measurements; on the card it needs every width and ``pe_dim`` to
 be a multiple of 8 (:func:`check_card_widths`).
@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from season_nerf_torch.models.encodings import positional_encode
 from season_nerf_torch.models.siren import BN_EPS
-from season_nerf_torch.ops import cuda_build
+from season_nerf_torch.ops.cuda_build import Library
 from season_nerf_torch.ops.fast_math import plain_cos, plain_sin
 from season_nerf_torch.ops.fused_trunk import trunk_layers
 from season_nerf_torch.utils import trace
@@ -50,6 +50,16 @@ PE_PAD = 64          # padded extended-PE width (63 -> 64)
 HEAD_PAD = 8         # sigma (1) + color (3) + 4 zero columns
 FWD_KERNEL = "trunk_train_fwd"
 BWD_KERNEL = "trunk_train_bwd"
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+FWD_LIB = Library(FWD_KERNEL, {
+    "trunk_train_fwd_launch": (_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P,
+                               _I, _I, _I, _P),
+    "trunk_train_gemm_launch": (_P, _I, _L, _P, _I, _L, _P, _L, _P, _I, _I,
+                                _I, _I, _I, _P, _L, _P)})
+BWD_LIB = Library(BWD_KERNEL, {
+    "trunk_train_bwd_launch": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P,
+                               _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _L,
+                               _P)})
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -341,30 +351,6 @@ def _table(spec: TrunkSpec, params, acts, zs, mus, vars_, save_zh,
     return rows
 
 
-def _library(name: str):
-    lib = cuda_build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if fn.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == FWD_KERNEL:
-            fn.argtypes = [P, I, P, I, I, I, P, P, I, P, P, I, I, I, P]
-            lib.trunk_train_gemm_launch.argtypes = [
-                P, I, L, P, I, L, P, L, P, I, I, I, I, I, P, L, P]
-            lib.trunk_train_gemm_launch.restype = I
-        else:
-            fn.argtypes = [P, I, P, I, I, I, P, I, P, P, P, P, I, I, I,
-                           P, P, P, P, I, P, L, P]
-        fn.restype = I
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes, err.restype = [I], ctypes.c_char_p
-    return lib
-
-
-def _raise(lib, name, err, spec):
-    msg = getattr(lib, f"{name}_error_string")(err).decode()
-    raise RuntimeError(f"{name} launch failed: {msg} (spec {spec})")
-
-
 def _per_tile(spec, n, device):
     nt = n // spec.tile
     return ([None] + [torch.empty((nt, w), device=device)
@@ -397,21 +383,15 @@ def trunk_fwd(spec: TrunkSpec, pe: torch.Tensor,
     stats = torch.empty((2 * spec.n_bn, spec.stat_width), device=dev)
     table = _table(spec, params, acts, [z] * spec.n_layers, mus, vars_,
                    False)
-    lib = _library(FWD_KERNEL)
-    with torch.cuda.device(dev), trace.span("k1.launch"):
-        err = lib.trunk_train_fwd_launch(
-            table.ctypes.data, spec.n_layers, pe.data_ptr(), spec.pe_dim, n,
-            spec.tile, params[-2].data_ptr(), params[-1].data_ptr(),
-            HEAD_PAD, heads.data_ptr(), stats.data_ptr(), spec.stat_width,
-            int(act == torch.bfloat16), int(spec.fast_sine),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        _raise(lib, FWD_KERNEL, err, spec)
-    trunk_fwd.launches += 1
+    with trace.span("k1.launch"):
+        FWD_LIB.launch(
+            "trunk_train_fwd_launch", dev, table.ctypes.data, spec.n_layers,
+            pe, spec.pe_dim, n, spec.tile, params[-2], params[-1], HEAD_PAD,
+            heads, stats, spec.stat_width, int(act == torch.bfloat16),
+            int(spec.fast_sine), counter="k1.launches", context=spec)
     return xenc, heads, stats
 
 
-trunk_fwd.launches = 0
 _MAX_SPLITS = 64      # kMaxSplits of trunk_train_common.cuh
 
 
@@ -453,23 +433,14 @@ def trunk_bwd(spec: TrunkSpec, pe: torch.Tensor,
                                       spec.widths + (HEAD_PAD,)))
     ws = torch.empty((ws_floats,), device=dev)
     table = _table(spec, params, acts, zs, mus, vars_, True, grads)
-    lib = _library(BWD_KERNEL)
-    with torch.cuda.device(dev), trace.span("k2.launch"):
-        err = lib.trunk_train_bwd_launch(
-            table.ctypes.data, spec.n_layers, pe.data_ptr(), spec.pe_dim, n,
-            spec.tile, params[-2].data_ptr(), HEAD_PAD, d_xenc.data_ptr(),
-            d_heads.data_ptr(), grads[-2].data_ptr(), grads[-1].data_ptr(),
-            int(act == torch.bfloat16), int(gd == torch.bfloat16),
-            int(spec.fast_sine), da.data_ptr(), dz.data_ptr(),
-            dheads_g.data_ptr(), part.data_ptr(), part_w, ws.data_ptr(),
-            ws_floats, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        _raise(lib, BWD_KERNEL, err, spec)
-    trunk_bwd.launches += 1
+    with trace.span("k2.launch"):
+        BWD_LIB.launch(
+            "trunk_train_bwd_launch", dev, table.ctypes.data, spec.n_layers,
+            pe, spec.pe_dim, n, spec.tile, params[-2], HEAD_PAD, d_xenc,
+            d_heads, grads[-2], grads[-1], int(act == torch.bfloat16),
+            int(gd == torch.bfloat16), int(spec.fast_sine), da, dz, dheads_g,
+            part, part_w, ws, ws_floats, counter="k2.launches", context=spec)
     return grads
-
-
-trunk_bwd.launches = 0
 
 
 # --- the GEMM of K1 and K2, alone ------------------------------------------
@@ -544,17 +515,10 @@ def gemm_bf16(a: torch.Tensor, b: torch.Tensor, layout: str,
     ws_floats = _MAX_SPLITS * M * N if split else 0
     ws = torch.empty((ws_floats,), device=a.device) if split else None
     a_kc, b_kc = GEMM_LAYOUTS[layout]
-    lib = _library(FWD_KERNEL)
-    with torch.cuda.device(a.device):
-        err = lib.trunk_train_gemm_launch(
-            a.data_ptr(), int(a_kc), a.shape[1], b.data_ptr(), int(b_kc),
-            b.shape[1], out.data_ptr(), N,
-            bias.data_ptr() if bias is not None else None, M, N, K,
-            int(c is not None), int(split),
-            ws.data_ptr() if split else None, ws_floats,
-            torch.cuda.current_stream(a.device).cuda_stream)
-    if err != 0:
-        _raise(lib, FWD_KERNEL, err, f"gemm {layout} {M}x{N}x{K}")
+    FWD_LIB.launch("trunk_train_gemm_launch", a.device, a, int(a_kc),
+                   a.shape[1], b, int(b_kc), b.shape[1], out, N, bias, M, N,
+                   K, int(c is not None), int(split), ws, ws_floats,
+                   context=f"gemm {layout} {M}x{N}x{K}")
     return out
 
 

@@ -21,10 +21,10 @@ meet zero weights.
 custom op, so that ``torch.export`` records the call and an exported
 render program reaches the same kernel): for a CPU tensor the plain
 version, :func:`trunk_apply_reference`; for a CUDA tensor a launch of
-``csrc/trunk_infer.cu`` or an error.  ``trunk_apply.launches`` counts the
-launches (``utils/trace`` reads it as ``k3.launches``; each launch is
-the span ``k3.launch``).  The bf16 kernel (TMA + wgmma, clusters of two
-64-row tiles) reads each layer's W' through a tensor map:
+``csrc/trunk_infer.cu`` or an error, counted as ``k3.launches``
+(``utils/trace``; each launch is the span ``k3.launch``).  The bf16
+kernel (TMA + wgmma, clusters of two 64-row tiles) reads each layer's W'
+through a tensor map:
 :meth:`FoldedTrunk.launch_plan`
 says per layer what the map covers, and :meth:`FoldedTrunk.tensor_maps`
 encodes the maps once per folded trunk (above a padded width of 512 the
@@ -53,7 +53,7 @@ import torch.nn.functional as F
 
 from season_nerf_torch.models.encodings import encoded_size, positional_encode
 from season_nerf_torch.models.siren import BN_EPS
-from season_nerf_torch.ops import cuda_build
+from season_nerf_torch.ops.cuda_build import Library
 from season_nerf_torch.ops.fast_math import plain_sin
 from season_nerf_torch.utils import trace
 
@@ -65,6 +65,11 @@ CLUSTER = 2             # CTAs of the bf16 kernel's cluster (trunk_infer.cu)
 SLOT_ROWS = 128         # W' rows of a slot of its weight ring
 MAX_WIDTH = 1024        # the kernels' widest padded layer
 MAX_LAYERS = 17         # the kernels' deepest trunk: fc1..fc16 + fc9
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIB = Library(KERNEL, {
+    "trunk_bf16_encode": (_P, _I, _I, _P),
+    "trunk_bf16_launch": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
+    "trunk_f32_launch": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P)})
 
 
 def _pad_to(n: int) -> int:
@@ -145,9 +150,8 @@ class FoldedTrunk:
         if self._maps is None:
             plan = self.launch_plan()
             maps = torch.zeros(len(self.weights) * 128, dtype=torch.uint8)
-            err = _launcher().trunk_bf16_encode(
-                plan.data_ptr(), len(self.weights), self.out_features,
-                maps.data_ptr())
+            err = LIB.call("trunk_bf16_encode", plan, len(self.weights),
+                           self.out_features, maps)
             if err != 0:
                 raise ValueError(f"the bf16 trunk kernel cannot map these "
                                  f"weights (error {err}): widths "
@@ -248,23 +252,6 @@ def trunk_apply_reference(pe: torch.Tensor, folded: FoldedTrunk,
         h = sin((x.to(w.dtype).to(acc_dtype) @ w.to(acc_dtype).t()
                  + b[:n]).float())
     return h
-
-
-def _launcher():
-    lib = cuda_build.load(KERNEL)
-    if lib.trunk_bf16_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.trunk_bf16_encode.argtypes = [ptr, i32, i32, ptr]
-        lib.trunk_bf16_launch.argtypes = [ptr, i32, ptr, ptr, ptr] \
-            + [i32] * 3 + [ptr]
-        lib.trunk_f32_launch.argtypes = [ptr, i32, ptr, ptr, ptr] \
-            + [i32] * 4 + [ptr]
-        for fn in (lib.trunk_bf16_encode, lib.trunk_bf16_launch,
-                   lib.trunk_f32_launch):
-            fn.restype = i32
-        lib.trunk_infer_error_string.argtypes = [i32]
-        lib.trunk_infer_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _limit_refusal(bf16: bool, width_pad: int, layers: int,
@@ -414,28 +401,18 @@ def _trunk_op_cuda(pe, weights, biases, ring, skip, width, width_pad,
         return out
     state = _launch_state(weights, biases, ring, skip, width_pad,
                           out_features, bf16)
-    lib = _launcher()
-    with torch.cuda.device(pe.device), \
-            trace.span("k3.launch"):        # launch on the tensors' card
-        stream = torch.cuda.current_stream(pe.device).cuda_stream
+    widths = f"widths {width_pad} + PE {PE_PAD}"
+    with trace.span("k3.launch"):
         if bf16:
             plan, maps = state
-            err = lib.trunk_bf16_launch(
-                plan.data_ptr(), len(weights), maps.data_ptr(),
-                pe.data_ptr(), out.data_ptr(), n, out_features,
-                int(fast_sine), stream)
+            LIB.launch("trunk_bf16_launch", pe.device, plan, len(weights),
+                       maps, pe, out, n, out_features, int(fast_sine),
+                       counter="k3.launches", context=widths)
         else:
-            err = lib.trunk_f32_launch(
-                state[0].data_ptr(), len(weights), ring.data_ptr(),
-                pe.data_ptr(), out.data_ptr(), n, out_features, width_pad,
-                int(fast_sine), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"trunk_infer launch failed: "
-            f"{lib.trunk_infer_error_string(err).decode()} (widths "
-            f"{width_pad} + PE {PE_PAD})")
-    with _lock:                             # frames in flight on threads
-        trunk_apply.launches += 1
+            LIB.launch("trunk_f32_launch", pe.device, state[0],
+                       len(weights), ring, pe, out, n, out_features,
+                       width_pad, int(fast_sine), counter="k3.launches",
+                       context=widths)
     return out
 
 
@@ -446,7 +423,6 @@ def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
 
     CPU tensor: the plain version.  CUDA tensor: the hand-written kernel
     (``csrc/trunk_infer.cu``), launched on the current stream, or an error.
-    ``trunk_apply.launches`` counts the kernel's launches.
     """
     if pe.device.type not in ("cpu", "cuda"):
         raise ValueError(f"trunk_apply takes a cpu or cuda tensor, got "
@@ -461,8 +437,7 @@ def trunk_apply(pe: torch.Tensor, folded: FoldedTrunk,
                     folded.width_pad, folded.out_features, fast_sine)
 
 
-trunk_apply.launches = 0
-_lock = threading.Lock()
+_lock = threading.Lock()                    # guards _launch_states
 
 
 class FusedTrunk:

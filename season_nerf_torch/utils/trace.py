@@ -16,15 +16,10 @@ native id, and opens
 ``torch.profiler.record_function(name)``, so that a profiled run carries
 the same names.  :func:`drain` returns the kept spans and forgets them.
 
-:func:`counters` reads the kernels' launch counters, which count always,
-whether or not spans are on: ``k3.launches`` (``ops/fused_trunk``
-``trunk_apply.launches``), ``k1.launches`` and ``k2.launches``
-(``ops/fused_train`` ``trunk_fwd.launches``, ``trunk_bwd.launches``) and
-``fast_sine.launches`` (``ops/fast_math`` ``launches``, the polynomial
-sine's kernel in both directions, the BatchNorm's folded launches among
-them) and ``batchnorm.launches`` (``ops/batchnorm_train`` ``launches``: a
-training BatchNorm's column-sum pass forward and its dz pass backward,
-which runs under the span ``siren.batchnorm_bwd``).
+The kernels' launch counters live here too, and count always, whether
+or not spans are on: ``ops/cuda_build``'s binder adds each launch to its
+counter (:func:`count`) and :func:`counters` reads them all.
+:data:`COUNTERS` names them.
 """
 
 from __future__ import annotations
@@ -43,6 +38,20 @@ _spans: List["Span"] = []
 _lock = threading.Lock()
 _ids = itertools.count(1)
 _local = threading.local()
+
+COUNTERS = {
+    "k3.launches": "K3, the inference trunk (ops/fused_trunk)",
+    "k1.launches": "K1, the fused training trunk's forward (ops/fused_train)",
+    "k2.launches": "K2, its backward (ops/fused_train)",
+    "fast_sine.launches": "the polynomial sine's kernel, both directions, "
+                          "the training BatchNorm's folded launches among "
+                          "them (ops/fast_math, ops/batchnorm_train)",
+    "batchnorm.launches": "a training BatchNorm's column-sum pass forward "
+                          "(span siren.batchnorm) and its dz pass backward "
+                          "(siren.batchnorm_bwd), not a mesh's finish "
+                          "(ops/batchnorm_train)",
+}
+_counts = dict.fromkeys(COUNTERS, 0)
 
 
 class Span(NamedTuple):
@@ -114,12 +123,14 @@ class _Open:
         return False
 
 
+def count(name: str, n: int = 1):
+    """Add ``n`` launches to the counter ``name`` (one of :data:`COUNTERS`;
+    frames in flight on threads launch too)."""
+    with _lock:
+        _counts[name] += n
+
+
 def counters() -> Dict[str, int]:
     """The kernels' launches since the process started, by name."""
-    from season_nerf_torch.ops import (batchnorm_train, fast_math,
-                                       fused_train, fused_trunk)
-    return {"k3.launches": fused_trunk.trunk_apply.launches,
-            "k1.launches": fused_train.trunk_fwd.launches,
-            "k2.launches": fused_train.trunk_bwd.launches,
-            "fast_sine.launches": fast_math.launches,
-            "batchnorm.launches": batchnorm_train.launches}
+    with _lock:
+        return dict(_counts)

@@ -103,6 +103,13 @@ def _run(z, g, norm, plain):
             "running_var": n.running_var}
 
 
+def _launched(before):
+    """(column-sum and dz launches, sine launches) since ``before``."""
+    after = trace.counters()
+    return tuple(after[k] - before[k]
+                 for k in ("batchnorm.launches", "fast_sine.launches"))
+
+
 def _gap(got, want, rtol_of_max=0.0, casts=False):
     """The largest excess of |got - want| over the casts' half steps, as a
     share of want's largest where ``rtol_of_max`` (else absolute)."""
@@ -137,10 +144,10 @@ def _kappa_below(z, bound):
 def test_kernels_match_the_plain_version(cuda, width):
     z, g, norm = _inputs(cuda, width, 11 + width)
     assert _kappa_below(z, KAPPA)
-    n0, s0 = bt.launches, fm.launches
+    before = trace.counters()
     got = _run(z, g, norm, plain=False)
     torch.cuda.synchronize(cuda)
-    assert (bt.launches - n0, fm.launches - s0) == (2, 2)
+    assert _launched(before) == (2, 2)
     want = _run(z, g, norm, plain=True)
     gaps = _gaps(got, want)
     assert all(gaps[k] <= TOL[k] for k in TOL), gaps
@@ -168,10 +175,10 @@ def test_a_training_layer_of_any_width_takes_the_kernels(cuda, width):
     layer = SineLayer(16, width, use_norm=True, dtype=torch.bfloat16,
                       fast_sine=True).to(cuda).train()
     x = torch.randn(4099, 16, device=cuda)
-    n0, s0 = bt.launches, fm.launches
+    before = trace.counters()
     layer(x).float().sum().backward()
     torch.cuda.synchronize(cuda)
-    assert (bt.launches - n0, fm.launches - s0) == (2, 2)
+    assert _launched(before) == (2, 2)
     assert torch.isfinite(layer.norm.weight.grad).all()
 
 
@@ -226,8 +233,7 @@ def test_kernels_hold_to_double_where_the_variance_cancels(cuda):
     exact = _double(z, g, norm, stats)
     kappa = exact["kappa"]
     live = torch.isfinite(kappa)
-    with torch.cuda.device(cuda):
-        blocks = bt._library().bn_stats_blocks(z.numel(), z.shape[1])
+    blocks = bt._blocks(bt.LIB, "bn_stats_blocks", z)
     lanes = 256 // (z.shape[1] // 8)
     terms = -(-z.shape[0] // (blocks * lanes)) + lanes
     bound = 1.5 * terms * 2.0 ** -24 * kappa + 2.0 ** -24
@@ -269,7 +275,7 @@ def test_the_unfolded_sine_instances_are_unchanged(cuda):
 
 def test_refuses_what_the_kernels_do_not_take(cuda):
     norm = torch.nn.BatchNorm1d(12).to(cuda)
-    n0 = bt.launches
+    before = trace.counters()
     for z in (torch.ones(64, 12, device=cuda),
               torch.ones(4, 16, 12, device=cuda, dtype=torch.bfloat16),
               torch.ones(0, 12, device=cuda, dtype=torch.bfloat16)):
@@ -278,7 +284,7 @@ def test_refuses_what_the_kernels_do_not_take(cuda):
     z = torch.ones(64, 16, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="parameters"):
         bt.batchnorm_sine(z, norm)          # 12 columns of statistics
-    assert bt.launches == n0
+    assert trace.counters() == before
 
 
 def test_the_mesh_branch_at_world_size_1_matches_the_no_mesh_launch(cuda):

@@ -26,6 +26,7 @@ from season_nerf_torch.models.siren import SineLayer
 from season_nerf_torch.ops import batchnorm_train as bt
 from season_nerf_torch.ops import fast_math as fm
 from season_nerf_torch.parallel.mesh import launch, make_mesh
+from season_nerf_torch.utils import trace
 
 import torch_mesh_ranks
 
@@ -78,7 +79,7 @@ def _within_casts(got, want, tol):
 def test_plain_version_matches_autograd_of_bn_train(width):
     layer, z, g = _layer(width, width)
     ours = copy.deepcopy(layer.norm)
-    n0 = fm.launches, bt.launches
+    before = trace.counters()
 
     zr = z.clone().requires_grad_()
     want = fm.fast_sin(layer.bn_train(zr.float()), torch.bfloat16)
@@ -100,7 +101,7 @@ def test_plain_version_matches_autograd_of_bn_train(width):
                  (ours.bias, layer.norm.bias)):
         assert float((p.grad - q.grad).abs().max()) \
             <= GRAD_RTOL * float(q.grad.abs().max())
-    assert (fm.launches, bt.launches) == n0     # the CPU launches nothing
+    assert trace.counters() == before       # the CPU launches nothing
 
 
 @pytest.fixture(scope="module")

@@ -53,8 +53,14 @@ from season_nerf_torch.ops import fused_train as ftr
 from season_nerf_torch.ops import fused_trunk as ft
 from season_nerf_torch.render.loading import load_model_dir
 from season_nerf_torch.train.state import save_model_artifact
+from season_nerf_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
+
+
+def launched(kernel="k3") -> int:
+    """The launches counted as ``<kernel>.launches`` so far."""
+    return trace.counters()[f"{kernel}.launches"]
 
 @pytest.fixture(scope="module")
 def cuda():
@@ -103,11 +109,11 @@ def test_kernel_matches_plain_version(cuda, width, depth, n, dtype,
     folded = ft.fold_trunk(_model(width, depth).G_NeRF_net, dtype=dtype,
                            device=cuda)
     pe = _pe(n, cuda)
-    launches = ft.trunk_apply.launches
+    launches = launched()
     got = ft.trunk_apply(pe, folded, fast_sine)
     want = ft.trunk_apply_reference(pe, folded, fast_sine)
     torch.cuda.synchronize()
-    assert ft.trunk_apply.launches == launches + 1
+    assert launched() == launches + 1
     assert got.shape == want.shape == (n, max(width // 2, 1))
     assert torch.isfinite(got).all()
     err = (got - want).abs()
@@ -157,9 +163,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     for bad in (no_ring, cpu_ring):
         with pytest.raises(ValueError, match="f32 trunk kernel"):
             ft.trunk_apply(pe, bad)
-    launches = ft.trunk_apply.launches
+    launches = launched()
     assert ft.trunk_apply(pe[:0], folded).shape == (0, 16)
-    assert ft.trunk_apply.launches == launches       # nothing to launch
+    assert launched() == launches       # nothing to launch
 
 
 
@@ -176,13 +182,13 @@ def test_operator_matches_plain_version(cuda, dtype):
     args = (pe, folded.weights, folded.biases, folded.ring_weights,
             folded.inputs.index("h+pe"), 512, folded.width_pad,
             folded.out_features, True)
-    launches = ft.trunk_apply.launches
+    launches = launched()
     got = torch.ops.season_nerf.trunk_apply(*args)
     states = len(ft._launch_states)
     again = ft.trunk_op(*args)
     via = ft.trunk_apply(pe, folded, True)
     torch.cuda.synchronize()
-    assert ft.trunk_apply.launches == launches + 3
+    assert launched() == launches + 3
     assert len(ft._launch_states) == states
     assert torch.equal(got, again) and torch.equal(got, via)
     want = ft.trunk_apply_reference(pe, folded, True)
@@ -210,19 +216,19 @@ def test_exported_program_on_the_card_matches_live(cuda, tmp_path, legacy,
     argv = [d, "-o", out, "--device", "cuda"]
     if fast:
         argv += ["--fast_render", *map(str, fast)]
-    launches = ft.trunk_apply.launches
+    launches = launched()
     export_render.main(argv)
-    assert ft.trunk_apply.launches == launches
+    assert launched() == launches
     program = export_render.load_exported(out)
     live = load_model_dir(d, device=cuda, fast_render=fast).renderer
     rays = [torch.from_numpy(a).to(cuda)
             for a in export_render.check_rays(cfg.chunk)]
     with torch.no_grad():
         want = live._full_chunk(*rays)
-        launches = ft.trunk_apply.launches
+        launches = launched()
         got = program(*rays)
         torch.cuda.synchronize()
-    assert ft.trunk_apply.launches - launches == (2 if fast else 1)
+    assert launched() - launches == (2 if fast else 1)
     assert sorted(got) == sorted(want)
     for k in want:
         assert torch.isfinite(got[k]).all(), k
@@ -257,11 +263,11 @@ def test_kernel_matches_plain_version_wide_and_deep(cuda, label, width,
         pe = _pe(n, cuda)
         flag = order_moves(pe, flagship, fast_sine, ft.trunk_apply_reference(
             pe, flagship, fast_sine))
-        launches = ft.trunk_apply.launches
+        launches = launched()
         got = ft.trunk_apply(pe, folded, fast_sine)
         want = ft.trunk_apply_reference(pe, folded, fast_sine)
         torch.cuda.synchronize()
-        assert ft.trunk_apply.launches == launches + 1
+        assert launched() == launches + 1
         assert got.shape == want.shape and torch.isfinite(got).all()
         err = (got - want).abs()
         tol_max, tol_mean = order_tolerance(
@@ -314,10 +320,10 @@ def test_movie_on_the_card(cuda, tmp_path):
     from season_nerf_torch.tools import make_movie
     cfg = Config(fc_units=64, fc_layers=4, n_samples=16, chunk=100)
     write_model_dir(str(tmp_path), make_model(cfg), cfg, (0.0, 30.0))
-    launches = ft.trunk_apply.launches
+    launches = launched()
     make_movie.main(["--Model_Location", str(tmp_path), "--frames", "3",
                      "--size", "12", "--out", str(tmp_path / "m.gif")])
-    assert ft.trunk_apply.launches - launches == 3 * -(-144 // cfg.chunk)
+    assert launched() - launches == 3 * -(-144 // cfg.chunk)
     script = make_movie.default_script()
     card = load_model_dir(str(tmp_path), device=cuda).renderer
     cpu = load_model_dir(str(tmp_path), device="cpu").renderer
@@ -340,10 +346,10 @@ def test_render_on_the_card_matches_the_cpu(cuda, tmp_path):
     card = load_model_dir(str(tmp_path), device=cuda).renderer
     cpu = load_model_dir(str(tmp_path), device="cpu").renderer
     args = ((70.0, 30.0), (45.0, 160.0), 0.4, 12)
-    launches = ft.trunk_apply.launches
+    launches = launched()
     got = card.render_img(*args, exact_shadow=True)
     rays, S = 12 * 12, cfg.n_samples
-    assert ft.trunk_apply.launches - launches == (
+    assert launched() - launches == (
         -(-rays // cfg.chunk) + -(-rays * S // cfg.chunk) * (S - 1))
     want = cpu.render_img(*args, exact_shadow=True)
     for k in ("Col_Img", "Shadow_Mask", "Exact_Shadow_Mask", "PS_Sum"):
@@ -365,10 +371,10 @@ def test_render_16px_full_width_matches_the_cpu(cuda, tmp_path):
     save_world_artifact(str(tmp_path / "W2C_W2L_H.npy"), None, None,
                         (0.0, 30.0))
     args = ((70.0, 30.0), (45.0, 180.0), 0.5, 16)
-    launches = ft.trunk_apply.launches
+    launches = launched()
     got = load_model_dir(str(tmp_path), device=cuda).renderer.render_img(
         *args)
-    assert ft.trunk_apply.launches - launches == -(-16 * 16 // cfg.chunk)
+    assert launched() - launches == -(-16 * 16 // cfg.chunk)
     want = load_model_dir(str(tmp_path), device="cpu").renderer.render_img(
         *args)
     for k in ("Col_Img", "Shadow_Mask", "Height", "PS_Sum"):
@@ -396,11 +402,11 @@ def test_legacy_f32_model_dir_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert fused.folded.dtype == torch.float32 and not fused.fast_sine
         assert fused.folded.ring_weights.is_cuda
         args = ((70.0, 30.0), (45.0, 180.0), 0.5, size)
-        launches = ft.trunk_apply.launches
+        launches = launched()
         got = card.render_img(*args, exact_shadow=shadow)
         rays, S = size * size, cfg.n_samples
         chunks = lambda n: -(-n // cfg.chunk)
-        assert ft.trunk_apply.launches - launches == chunks(rays) + (
+        assert launched() - launches == chunks(rays) + (
             chunks(rays * S) * (S - 1) if shadow else 0)
         want = cpu.render_img(*args, exact_shadow=shadow)
         keys = ("Col_Img", "Shadow_Mask", "Height", "PS_Sum") + (
@@ -427,11 +433,11 @@ def test_fast_render_16px_full_width_matches_the_cpu(cuda, tmp_path):
                           device=cuda).renderer
     cpu = load_model_dir(str(tmp_path), fast_render=FAST_RENDER,
                          device="cpu").renderer
-    launches = ft.trunk_apply.launches
+    launches = launched()
     got = card.render_img(*args, exact_shadow=True)
     rays, nf, S = 16 * 16, FAST_RENDER[1], cfg.n_samples
     chunks = lambda n: -(-n // cfg.chunk)
-    assert ft.trunk_apply.launches - launches == \
+    assert launched() - launches == \
         2 * chunks(rays) + chunks(rays * nf) * (S - 1)
     want = cpu.render_img(*args, exact_shadow=True)
     for k in ("Col_Img", "Shadow_Mask", "Height", "PS_Sum",
@@ -449,11 +455,11 @@ def test_hierarchical_step_on_the_card_matches_the_cpu(cuda):
     from season_nerf_torch.data.synthetic import make_scene, scene_ray_tables
     scene = make_scene(n_views=3, img_size=24, grid=32, seed=1)
     table, _ = scene_ray_tables(scene, testing_size=1)
-    launches = ft.trunk_apply.launches
+    launches = launched()
     res = cpu_vs_card(table, scene.prior_hm, cuda,
                       flagship_train_config(**HIER_SMALL), HIER_RTOL,
                       HIER_ATOL, HIER_GRAD_RTOL)
-    assert ft.trunk_apply.launches - launches == 3
+    assert launched() - launches == 3
     assert res["worst_rel"] <= HIER_RTOL
 
 
@@ -475,6 +481,7 @@ sys.path.insert(0, ".")
 from chip_smoke import TOL, make_model
 from season_nerf_torch.config import Config
 from season_nerf_torch.ops import cuda_build, fast_math, fused_trunk as ft
+from season_nerf_torch.utils import trace
 assert fast_math.DEGREE == 7
 cuda_build.build([ft.KERNEL])
 assert "FAST_SIN_DEGREE=7" in " ".join(cuda_build.NVCC_FLAGS)
@@ -489,7 +496,7 @@ for dtype in (torch.bfloat16, torch.float32):
                - ft.trunk_apply_reference(pe, folded, True)).abs()
         assert float(err.max()) <= TOL[dtype][0], (dtype, n, float(err.max()))
         assert float(err.mean()) <= TOL[dtype][1], (dtype, n)
-print("ok", ft.trunk_apply.launches)
+print("ok", trace.counters()["k3.launches"])
 """
 
 
@@ -538,7 +545,7 @@ def test_train_kernels_match_plain_versions(cuda, name, dtype, fast_sine):
           if spec.pe_dim == ftr.PE_PAD else
           (torch.rand(n, spec.pe_dim, generator=gen, device=cuda) * 2 - 1)
           .to(torch.bfloat16))
-    launches = (ftr.trunk_fwd.launches, ftr.trunk_bwd.launches)
+    launches = (launched("k1"), launched("k2"))
     got = ftr.trunk_fwd(spec, pe, params)
     want = ftr.trunk_fwd_reference(spec, pe, params)
     dt = ftr._DTYPES[dtype]
@@ -552,7 +559,7 @@ def test_train_kernels_match_plain_versions(cuda, name, dtype, fast_sine):
     got = ftr.trunk_bwd(spec, pe, params, d_x, d_h)
     want = ftr.trunk_bwd_reference(spec, pe, params, d_x.to(dt), d_h)
     torch.cuda.synchronize()
-    assert (ftr.trunk_fwd.launches, ftr.trunk_bwd.launches) == (
+    assert (launched("k1"), launched("k2")) == (
         launches[0] + 1, launches[1] + 1)
     for k, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape and torch.isfinite(a).all(), k
@@ -651,13 +658,13 @@ def test_trainer_steps_on_the_card_through_k1_and_k2(cuda):
                  max_train_steps=100, pallas_trunk=True)
     tr = Trainer(cfg, table, prior_hm=scene.prior_hm)
     assert tr.device.type == "cuda"
-    before = (ftr.trunk_fwd.launches, ftr.trunk_bwd.launches)
+    before = (launched("k1"), launched("k2"))
     for _ in range(2):
         loss = tr.train_step()
         assert all(bool(torch.isfinite(v)) for v in loss.values())
     assert tr.statics.trunk_spec is not None
-    assert (ftr.trunk_fwd.launches - before[0],
-            ftr.trunk_bwd.launches - before[1]) == (4, 2)
+    assert (launched("k1") - before[0],
+            launched("k2") - before[1]) == (4, 2)
 
 
 def test_save_point_validation_on_the_card_matches_the_cpu(cuda, tmp_path):
@@ -676,10 +683,10 @@ def test_save_point_validation_on_the_card_matches_the_cpu(cuda, tmp_path):
     cfg = Config(fc_units=256, batch_size=64, n_samples=32, max_train_steps=4,
                  n_saves=1, pallas_trunk=True, logs_dir=str(tmp_path))
     tr = Trainer(cfg, table, val, prior_hm=scene.prior_hm, gt_dsm=scene.hm)
-    before = ft.trunk_apply.launches
+    before = launched()
     tr.run()
     assert sorted(tr.save_steps) == [4]
-    assert ft.trunk_apply.launches - before == 2 + -(-len(val) // VAL_CHUNK)
+    assert launched() - before == 2 + -(-len(val) // VAL_CHUNK)
     assert tr.model.training
     draws = ValDraws(cfg.seed, len(val), min(cfg.batch_size, len(val)),
                      device="cpu")
@@ -743,10 +750,10 @@ def test_density_surface_on_the_card_matches_the_cpu(cuda, dtype, tol):
     from chip_smoke import CHUNK_COLS
     from season_nerf_torch.eval import hm_eval
     grid = (70, 61)                       # 4270 columns: 2 calls
-    before = ft.trunk_apply.launches
+    before = launched()
     card = hm_eval.density_surface(_eval_model(dtype, cuda), grid,
                                    n_samples=96)
-    assert ft.trunk_apply.launches - before == -(-70 * 61 // CHUNK_COLS)
+    assert launched() - before == -(-70 * 61 // CHUNK_COLS)
     cpu = hm_eval.density_surface(_eval_model(dtype, "cpu"), grid,
                                   n_samples=96)
     for a, b in zip(card, cpu):
@@ -815,7 +822,7 @@ def test_analyze_model_on_the_card_matches_the_cpu(cuda, tmp_path):
         r = Renderer(_eval_model("bfloat16", dev), n_samples=32, chunk=300)
         rec = {}
         restore = _timed(img_eval, "align_errors", rec)
-        before = ft.trunk_apply.launches
+        before = launched()
         try:
             an = regional.analyze_model(r, r.model, scene.cameras, test_idx,
                                         scene.hm, (0.0, 30.0),
@@ -824,7 +831,7 @@ def test_analyze_model_on_the_card_matches_the_cpu(cuda, tmp_path):
             restore()
         regional.write_analysis_outputs(an, str(tmp_path / str(dev) / "Out"))
         runs[str(dev)] = (an, rec["align_errors"],
-                          ft.trunk_apply.launches - before)
+                          launched() - before)
     (card, card_al, k3), (cpu, cpu_al, _) = runs[str(cuda)], runs["cpu"]
     assert k3 == analysis_k3_launches(scene.cameras, test_idx, (20, 20), 12,
                                       scene.hm.shape, 300)
@@ -847,10 +854,10 @@ def test_shadow_angles_on_the_card_match_the_cpu(cuda, dtype, tol):
     ground = np.stack(np.meshgrid(np.linspace(-1, 1, 16),
                                   np.linspace(-1, 1, 16), indexing="ij"),
                       -1).reshape(-1, 2)
-    before = ft.trunk_apply.launches
+    before = launched()
     card = shadow_eval.eval_shadow_angles(_eval_model(dtype, cuda).eval(),
                                           angles, ground, n_samples=48)
-    assert ft.trunk_apply.launches - before == len(angles)
+    assert launched() - before == len(angles)
     cpu = shadow_eval.eval_shadow_angles(_eval_model(dtype, "cpu").eval(),
                                          angles, ground, n_samples=48)
     for a, b in zip(card, cpu):
@@ -885,7 +892,7 @@ def test_regional_eval_on_the_card_matches_the_cpu(cuda, tmp_path, seed):
                      chunk=300)
         rec = {}
         restore = _timed(img_eval, "align_errors", rec)
-        before = ft.trunk_apply.launches
+        before = launched()
         out = str(tmp_path / str(dev))
         try:
             res = regional.regional_eval(r, r.model, scene.cameras, test_idx,
@@ -895,7 +902,7 @@ def test_regional_eval_on_the_card_matches_the_cpu(cuda, tmp_path, seed):
             restore()
         assert not regional_problems(res, out)
         runs[str(dev)] = (res, rec["align_errors"],
-                          ft.trunk_apply.launches - before)
+                          launched() - before)
     (card, card_al, k3), (cpu, cpu_al, _) = runs[str(cuda)], runs["cpu"]
     assert k3 == regional_k3_launches(scene.cameras, test_idx, (16, 16),
                                       (12, 12), scene.hm.shape, 300)
@@ -944,11 +951,10 @@ def test_render_mesh_of_two_replicas_on_the_card_matches_one_device(cuda,
     one = Renderer(model, **kw)
     two = Renderer(model, mesh=make_mesh(devices=[cuda, cuda]), **kw)
     args = ((70.0, 30.0), (45.0, 180.0), 0.5, 48)
-    before = ft.trunk_apply.launches
+    before = launched()
     got = two.render_img(*args)
     chunks = -(-48 * 48 // two.chunk)
-    assert ft.trunk_apply.launches - before == 2 * chunks * (2 if fast
-                                                              else 1)
+    assert launched() - before == 2 * chunks * (2 if fast else 1)
     want = one.render_img(*args)
     for k in ("Col_Img", "Shadow_Mask", "Height"):
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=RENDER_TOL,

@@ -39,6 +39,7 @@ import torch
 from season_nerf_torch.ops import fused_trunk as ft
 from season_nerf_torch.render import loading as t_loading
 from season_nerf_torch.tools import export_render as t_export
+from season_nerf_torch.utils import trace
 from season_nerf_tpu.config import Config
 from season_nerf_tpu.models.tnerf import model_from_config
 from season_nerf_tpu.render import loading as j_loading
@@ -161,10 +162,10 @@ def test_the_program_reaches_k3_through_the_operator(bf16_dir, fast):
     calls = [n for n in ep.graph.nodes
              if n.target is torch.ops.season_nerf.trunk_apply.default]
     assert len(calls) == (2 if fast else 1)
-    launches = ft.trunk_apply.launches
+    before = trace.counters()
     with torch.no_grad():
         ep.module()(*args)
-    assert ft.trunk_apply.launches == launches      # no kernel on the CPU
+    assert trace.counters() == before       # no kernel on the CPU
 
 
 CLEAN = """

@@ -41,6 +41,11 @@ FLAGSHIP = (4096 * 96, 512)     # one SIREN layer's z in a flagship step
 ATOL = 2e-6
 
 
+def launched() -> int:
+    """The sine kernel's launches so far (``fast_sine.launches``)."""
+    return trace.counters()["fast_sine.launches"]
+
+
 @pytest.fixture(scope="module")
 def cuda():
     """The card; every test of this file skips without one."""
@@ -73,10 +78,10 @@ def _within_the_casts(got, want):
 @pytest.mark.parametrize("cosine", [False, True], ids=["sin", "cos"])
 def test_forward_matches_the_plain_chain(cuda, flagship_x, cosine):
     x = flagship_x
-    n0 = fm.launches
+    n0 = launched()
     y = fm.sine_op(x, cosine, False)
     yb = fm.sine_op(x, cosine, True)
-    assert fm.launches - n0 == 2
+    assert launched() - n0 == 2
     assert (y.dtype, yb.dtype) == (torch.float32, torch.bfloat16)
     assert y.shape == yb.shape == x.shape
     want = _plain(x, cosine)
@@ -97,9 +102,9 @@ def test_backward_matches_the_plain_chain(cuda, flagship_x, cosine, gdtype):
     x = flagship_x
     gen = torch.Generator(device=cuda).manual_seed(3)
     g = (torch.rand(FLAGSHIP, generator=gen, device=cuda) * 2 - 1).to(gdtype)
-    n0 = fm.launches
+    n0 = launched()
     dx = fm.sine_grad_op(x, g, cosine)
-    assert fm.launches - n0 == 1
+    assert launched() - n0 == 1
     assert dx.dtype == torch.float32 and dx.shape == x.shape
     want = (-fm.plain_sin(x) if cosine else fm.plain_cos(x)) * g.float()
     assert float((dx - want).abs().max()) <= ATOL
@@ -110,6 +115,7 @@ def test_backward_matches_the_plain_chain(cuda, flagship_x, cosine, gdtype):
 DEGREE_CHILD = r"""
 import json, math, torch
 from season_nerf_torch.ops import cuda_build, fast_math as fm
+from season_nerf_torch.utils import trace
 x = (torch.rand(4099, 515, device="cuda") * 2 - 1) * 1e3
 near = (torch.rand(4099, 515, device="cuda") * 2 - 1) * math.pi
 g = torch.rand(4099, 515, device="cuda") * 2 - 1
@@ -120,7 +126,7 @@ print(json.dumps({
     "cos": err(fm.fast_cos(x), fm.plain_cos(x)),
     "grad": err(fm.sine_grad_op(x, g, False), fm.plain_cos(x) * g),
     "against_sin": err(fm.fast_sin(near), torch.sin(near.double()).float()),
-    "launches": fm.launches}))
+    "launches": trace.counters()["fast_sine.launches"]}))
 """
 
 # the polynomial's own error against sin on [-pi, pi]
@@ -149,7 +155,7 @@ def test_kernel_at_lower_sine_degrees(cuda, degree):
 
 def test_refuses_2_31_elements_and_other_dtypes(cuda):
     big = torch.zeros(1, device=cuda).expand(2 ** 31)   # nothing allocated
-    n0 = fm.launches
+    n0 = launched()
     with pytest.raises(ValueError, match=r"2\^31"):
         fm.sine_op(big, False, False)
     with pytest.raises(ValueError, match=r"2\^31"):
@@ -161,7 +167,7 @@ def test_refuses_2_31_elements_and_other_dtypes(cuda):
         fm.sine_grad_op(x, x.half(), False)
     with pytest.raises(ValueError, match="gradient"):
         fm.sine_grad_op(x, x[:8], False)
-    assert fm.launches == n0
+    assert launched() == n0
 
 
 def test_non_contiguous_misaligned_and_ragged_inputs(cuda):
@@ -189,17 +195,16 @@ def test_non_contiguous_misaligned_and_ragged_inputs(cuda):
 def test_sine_layer_launches_once_a_direction(cuda):
     """A bf16 SineLayer with fast_sine: one launch forward (the cast in its
     store), one backward; its activation is sine-then-cast bit for bit;
-    second order still runs on the card; the counter in utils/trace."""
+    second order still runs on the card."""
     torch.manual_seed(0)
     layer = SineLayer(64, 256, use_norm=True, dtype=torch.bfloat16,
                       fast_sine=True).to(cuda)
     x = torch.randn(4096, 64, device=cuda, requires_grad=True)
-    n0 = fm.launches
+    n0 = launched()
     y = layer(x)
-    assert fm.launches - n0 == 1 and y.dtype == torch.bfloat16
+    assert launched() - n0 == 1 and y.dtype == torch.bfloat16
     (y.float() ** 2).sum().backward()
-    assert fm.launches - n0 == 2
-    assert trace.counters()["fast_sine.launches"] == fm.launches
+    assert launched() - n0 == 2
     layer.eval()
     with torch.no_grad():
         y = layer(x)
@@ -220,7 +225,7 @@ def test_exported_sine_layer_calls_the_kernel(cuda):
     ep = torch.export.export(layer, (x,))
     assert any("season_nerf.fast_sine" in str(n.target)
                for n in ep.graph.nodes)
-    n0 = fm.launches
+    n0 = launched()
     got = ep.module()(x)
-    assert fm.launches - n0 == 1
+    assert launched() - n0 == 1
     assert torch.equal(got, layer(x))

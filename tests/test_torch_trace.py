@@ -7,8 +7,10 @@ there.  About 10 s on one worker."""
 
 from __future__ import annotations
 
+import ast
 import threading
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,9 +20,6 @@ from season_nerf_torch.config import Config
 from season_nerf_torch.models.siren import SineLayer
 from season_nerf_torch.models.tnerf import model_from_config
 from season_nerf_torch.ops import batchnorm_train as bt
-from season_nerf_torch.ops import fast_math
-from season_nerf_torch.ops import fused_train as ftr
-from season_nerf_torch.ops import fused_trunk as ft
 from season_nerf_torch.train.state import save_model_artifact
 from season_nerf_torch.utils import trace
 
@@ -139,22 +138,42 @@ def test_the_profiler_carries_the_span_names(on):
 
 
 def test_counters_read_the_launch_counters(monkeypatch):
-    assert trace.counters() == {"k3.launches": ft.trunk_apply.launches,
-                                "k1.launches": ftr.trunk_fwd.launches,
-                                "k2.launches": ftr.trunk_bwd.launches,
-                                "fast_sine.launches": fast_math.launches,
-                                "batchnorm.launches": bt.launches}
-    monkeypatch.setattr(ftr.trunk_fwd, "launches",
-                        ftr.trunk_fwd.launches + 2)
-    monkeypatch.setattr(ftr.trunk_bwd, "launches",
-                        ftr.trunk_bwd.launches + 1)
-    monkeypatch.setattr(fast_math, "launches", fast_math.launches + 3)
-    monkeypatch.setattr(bt, "launches", bt.launches + 4)
-    assert trace.counters()["k1.launches"] == ftr.trunk_fwd.launches
-    assert trace.counters()["k2.launches"] == ftr.trunk_bwd.launches
-    assert trace.counters()["fast_sine.launches"] == fast_math.launches
-    assert trace.counters()["batchnorm.launches"] == bt.launches
-    assert not hasattr(ftr.gemm_bf16, "launches")
+    """The tracer keeps the five launch counters: a count added under a
+    name shows under that name alone, a name it does not keep raises, and
+    a reading is a copy."""
+    monkeypatch.setattr(trace, "_counts", dict(trace._counts))
+    before = trace.counters()
+    assert sorted(before) == sorted(["k3.launches", "k1.launches",
+                                     "k2.launches", "fast_sine.launches",
+                                     "batchnorm.launches"])
+    assert sorted(trace.COUNTERS) == sorted(before)
+    added = {name: k for k, name in enumerate(sorted(before), 1)}
+    for name, n in added.items():
+        trace.count(name, n)
+    trace.count("k3.launches")
+    added["k3.launches"] += 1
+    after = trace.counters()
+    assert {k: after[k] - before[k] for k in after} == added
+    with pytest.raises(KeyError):
+        trace.count("gemm.launches")
+    after["k1.launches"] += 100
+    assert trace.counters() == {k: before[k] + added[k] for k in before}
+
+
+def test_the_tracer_imports_no_ops_module():
+    """The ops layer's binder counts into the tracer: the tracer imports
+    nothing of the ops layer, anywhere in its file."""
+    path = Path(trace.__file__)
+    modules = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            modules += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "a relative import"
+            modules += [node.module] + [f"{node.module}.{a.name}"
+                                        for a in node.names]
+    assert modules and not [m for m in modules
+                            if m.startswith("season_nerf_torch.ops")]
 
 
 @pytest.fixture(scope="module")

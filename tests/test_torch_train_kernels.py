@@ -28,6 +28,7 @@ import torch
 
 from season_nerf_torch.models.tnerf import TNeRF as TTNeRF
 from season_nerf_torch.ops import fused_train as ftr
+from season_nerf_torch.utils import trace
 from season_nerf_torch.utils.convert import state_dict_from_flax
 from season_nerf_tpu.ops import pallas_train as pt
 
@@ -187,11 +188,11 @@ def test_wrappers_run_the_plain_version_on_cpu_only():
     spec = ftr.TrunkSpec(**SMALL)
     params = [_t(p) for p in _jax_params(pt.TrunkSpec(**SMALL))]
     pe = torch.zeros(N, spec.pe_dim, dtype=torch.bfloat16)
-    before = (ftr.trunk_fwd.launches, ftr.trunk_bwd.launches)
+    before = trace.counters()
     ftr.trunk_fwd(spec, pe, params)
     ftr.trunk_bwd(spec, pe, params, torch.zeros(N, spec.enc_width),
                   torch.zeros(N, ftr.HEAD_PAD))
-    assert (ftr.trunk_fwd.launches, ftr.trunk_bwd.launches) == before
+    assert trace.counters() == before
     with pytest.raises(ValueError, match="cpu or cuda"):
         ftr.trunk_fwd(spec, pe.to("meta"), [p.to("meta") for p in params])
 

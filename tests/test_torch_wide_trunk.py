@@ -35,6 +35,7 @@ from season_nerf_torch.models.tnerf import TNeRF as TTNeRF
 from season_nerf_torch.ops import fused_trunk as ft
 from season_nerf_torch.render.loading import load_model_dir
 from season_nerf_torch.train.engine import Trainer
+from season_nerf_torch.utils import trace
 from season_nerf_torch.utils.convert import state_dict_from_flax
 from season_nerf_tpu.models.tnerf import GNeRF, TNeRF
 
@@ -89,13 +90,13 @@ def test_trainer_refuses_on_the_card_before_building(table, units, layers,
     """On ``cuda`` the Trainer refuses before its model, its table on the
     device or a step: here, with no card, anything built there would
     raise another error first."""
-    launches = ft.trunk_apply.launches
+    before = trace.counters()
     cfg = Config(fc_units=units, fc_layers=layers, batch_size=8, n_samples=4,
                  max_train_steps=2)
     with pytest.raises(ValueError, match=limit.replace("(", r"\(")
                        .replace(")", r"\)")):
         Trainer(cfg, table, device="cuda")
-    assert ft.trunk_apply.launches == launches
+    assert trace.counters() == before
 
 
 def test_run_train_refuses_before_preparing_the_site(tmp_path):
@@ -116,10 +117,10 @@ def test_load_model_dir_refuses_on_the_card_before_the_weights(
     Config(fc_units=units, fc_layers=layers).save_json(
         str(tmp_path / "opts.json"))
     (tmp_path / "Final_Model.nn").write_bytes(b"not read")
-    launches = ft.trunk_apply.launches
+    before = trace.counters()
     with pytest.raises(ValueError, match=limit):
         load_model_dir(str(tmp_path), device="cuda")
-    assert ft.trunk_apply.launches == launches
+    assert trace.counters() == before
     with pytest.raises(Exception) as e:             # the CPU reads on
         load_model_dir(str(tmp_path), device="cpu")
     assert "padded widths" not in str(e.value)
